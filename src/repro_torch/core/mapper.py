@@ -6,8 +6,9 @@ the candidate set.  A TPU block is a VMEM tile sized in multiples of the
 128-wide MXU; here a block is what the port's CUDA GeMM kernel accepts:
 
   * ``bm`` and ``bn`` are the CTA's output tile, one of ``GEMM_TILES``
-    (the kernel is compiled for exactly those), and the tile must fit the
-    per-CTA shared-memory budget (:func:`gemm_smem_bytes`);
+    (the float and the int8 kernels are compiled for exactly those), and
+    the tile must fit the per-CTA shared-memory budget
+    (:func:`gemm_smem_bytes`, sized for the operand width);
   * ``bk`` is the K slab: under WS / IS each slab is a separate CTA that
     writes its own f32 partial plane; under OS one CTA walks all of K, so
     ``bk`` is only the model's slab and the kernel ignores it.
@@ -28,8 +29,10 @@ from repro_torch.core.dataflows import ALL_DATAFLOWS, Dataflow, GemmShape
 
 # output tiles (bm, bn) the CUDA GeMM kernel is compiled for
 GEMM_TILES = (32, 64, 128)
-# K depth of one shared-memory step inside the kernel
+# K depth of one shared-memory step inside the float kernel
 GEMM_K_STEP = 16
+# K depth of one shared-memory step inside the int8 kernel (quant_gemm.cu)
+QGEMM_K_STEP = 32
 # K slabs the sweep scores (clamped to K)
 _BK_CANDIDATES = (128, 256, 512, 1024, 2048, 4096)
 
@@ -44,9 +47,15 @@ class GpuBlocking:
     smem_bytes: int            # the kernel's shared memory per CTA
 
 
-def gemm_smem_bytes(bm: int, bn: int) -> int:
+def gemm_smem_bytes(bm: int, bn: int, bytes_per_elem: int = 4) -> int:
     """Shared memory of one GeMM CTA: an A step stored transposed with one
-    pad column, and a B step (float32)."""
+    pad column, and a B step.  ``bytes_per_elem=4`` is the float32 kernel
+    (16-deep steps); ``1`` the int8 kernel, whose 32-deep steps hold both
+    operands as bytes.  The weight-only form of the int8 GeMM casts its
+    weight up as it loads it and stages float32 tiles:
+    ``gemm_smem_bytes(bm, bn, 4)``."""
+    if bytes_per_elem == 1:
+        return QGEMM_K_STEP * (bm + 1 + bn)
     return (GEMM_K_STEP * (bm + 1) + GEMM_K_STEP * bn) * 4
 
 
@@ -130,7 +139,7 @@ def _select_gpu_blocking_cached(shape: GemmShape, bytes_per_elem: int,
     candidates = []
     for bm in _tiles_for(shape.M):
         for bn in _tiles_for(shape.N):
-            smem = gemm_smem_bytes(bm, bn)
+            smem = gemm_smem_bytes(bm, bn, bytes_per_elem)
             if smem > smem_budget:
                 continue
             for bk in bks:

@@ -11,15 +11,21 @@ from __future__ import annotations
 import torch
 
 
-def check_operands(what: str, *tensors: torch.Tensor) -> torch.device:
+def check_operands(what: str, *tensors: torch.Tensor,
+                   dtypes: tuple[torch.dtype, ...] | None = None
+                   ) -> torch.device:
     """The common device of ``tensors`` if it is a CUDA device and every
-    tensor is a contiguous float32 tensor on it; raise otherwise."""
+    tensor is a contiguous tensor on it of its dtype in ``dtypes`` (one
+    per tensor; None: float32 for all, the float kernels); raise
+    otherwise.  The int8 kernels pass ``torch.int8`` for their payloads."""
     dev = tensors[0].device
-    for t in tensors:
+    if dtypes is None:
+        dtypes = (torch.float32,) * len(tensors)
+    for t, want in zip(tensors, dtypes, strict=True):
         if t.device != dev:
             raise ValueError(f"{what}: operands on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{what}: the kernel takes {want}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: the kernel takes contiguous tensors")
     if dev.type != "cuda":

@@ -24,6 +24,17 @@ MAX_ROWS = 8           # tallest pixel tile
 MAX_CIN_CHUNK = 32     # deepest channel chunk held in shared memory
 
 
+def pixel_tile(block_rows: int, block_cout: int) -> tuple[int, int, int]:
+    """``(th, tw, bco)``: the CTA's ``th x tw = 64`` output pixels, ``th``
+    the largest power of two not above ``min(block_rows, 8)``, and its
+    output channels, 64 or (``block_cout < 64``) 32.  The float and the
+    int8 conv kernels share this tile."""
+    th = 1
+    while th * 2 <= min(max(block_rows, 1), MAX_ROWS):
+        th *= 2
+    return th, TILE_PIXELS // th, 64 if block_cout >= 64 else 32
+
+
 def conv_tiling(C_in: int, kh: int, kw: int, stride, *, block_rows: int = 8,
                 block_cout: int = 128, block_cin: int = 512
                 ) -> tuple[int, int, int, int, int]:
@@ -38,11 +49,7 @@ def conv_tiling(C_in: int, kh: int, kw: int, stride, *, block_rows: int = 8,
         shared-memory chunk, halved until the CTA fits 227 KB.
     """
     sh, sw = normalize_stride(stride)
-    th = 1
-    while th * 2 <= min(max(block_rows, 1), MAX_ROWS):
-        th *= 2
-    tw = TILE_PIXELS // th
-    bco = 64 if block_cout >= 64 else 32
+    th, tw, bco = pixel_tile(block_rows, block_cout)
     ck = max(1, min(block_cin, MAX_CIN_CHUNK, C_in))
     ph, pw = (th - 1) * sh + kh, (tw - 1) * sw + kw
 

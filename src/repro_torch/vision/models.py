@@ -117,8 +117,10 @@ def _resnet_init(cfg: VisionConfig, generator: torch.Generator,
     return ResNet(cfg, stem, stages, head)
 
 
-def _resnet_apply(p: ResNet, x: torch.Tensor,
-                  cfg: VisionConfig) -> torch.Tensor:
+def resnet_features(p: ResNet, x: torch.Tensor,
+                    cfg: VisionConfig) -> torch.Tensor:
+    """The conv stack: stem, max pool and bottleneck stages, up to (not
+    including) the global average pool."""
     h = B.conv_bn_act(p.stem, x, stride=2, padding=3, name="conv1")
     h = B.max_pool(h, 3, stride=2, padding=1)
     for si, n_blocks in enumerate(cfg.stage_blocks):
@@ -126,7 +128,12 @@ def _resnet_apply(p: ResNet, x: torch.Tensor,
             stride = 2 if (bi == 0 and si > 0) else 1
             h = B.bottleneck(p.stages[si][bi], h, stride=stride,
                              name=f"l{si + 1}b{bi + 1}")
-    return B.dense(p.head, B.global_avg_pool(h))
+    return h
+
+
+def _resnet_apply(p: ResNet, x: torch.Tensor,
+                  cfg: VisionConfig) -> torch.Tensor:
+    return B.dense(p.head, B.global_avg_pool(resnet_features(p, x, cfg)))
 
 
 # ---------------------------------------------------------------------------

@@ -54,9 +54,24 @@ def np_of(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _qt_to_dict(qt) -> dict:
+    """A reference ``QuantizedTensor`` as the plain dict
+    ``repro_torch.convert.params_from_jax`` takes."""
+    return {"q": np.asarray(qt.q), "scale": np.asarray(qt.scale),
+            "act_scale": None if qt.act_scale is None
+            else np.asarray(qt.act_scale),
+            "axis": qt.axis, "dtype_name": qt.dtype_name, "bits": qt.bits,
+            "pack_size": qt.pack_size}
+
+
 def tree_to_numpy(tree):
-    """A reference pytree (dicts / lists of jax arrays) as numpy arrays."""
-    return jax.tree.map(np.asarray, tree)
+    """A reference pytree (dicts / lists of jax arrays) as numpy arrays;
+    each ``QuantizedTensor`` leaf becomes a plain dict of numpy arrays and
+    its static fields."""
+    from repro.quant import QuantizedTensor
+    is_qt = lambda x: isinstance(x, QuantizedTensor)       # noqa: E731
+    return jax.tree.map(lambda x: _qt_to_dict(x) if is_qt(x)
+                        else np.asarray(x), tree, is_leaf=is_qt)
 
 
 # f32 vs f32 with a different summation order: relative error grows like

@@ -38,7 +38,8 @@ from repro_torch.kernels import _build
 bad = sorted(k for k in sys.modules
              if k in ("jax", "repro") or k.startswith(("jax.", "repro.")))
 print(json.dumps({"modules": len(names), "bad": bad,
-                  "built": len(_build._libs)}))
+                  "built": len(_build._libs),
+                  "quant": sorted(n for n in names if ".quant." in n)}))
 """
 
 
@@ -50,6 +51,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
     res = json.loads(out.stdout)
     assert res["modules"] >= 20
     assert res["bad"] == [] and res["built"] == 0
+    assert res["quant"] == ["repro_torch.quant.calibrate",
+                            "repro_torch.quant.ptq",
+                            "repro_torch.quant.qtensor"]
 
 
 def _imports(path: Path) -> set[str]:
