@@ -1,8 +1,8 @@
 """Architecture configs of the port.
 
 ``get_vision_config(name)`` resolves the conv-net zoo as the reference
-does; only ``resnet50`` is ported so far (the LM configs come with the LM
-slice).
+does: ResNet50, MobileNetV1, YOLOv3 and YOLOv3-tiny are all ported (the
+LM configs come with the LM slice).
 """
 from __future__ import annotations
 
@@ -14,14 +14,11 @@ VISION_IDS = (
     "yolov3",
     "mobilenet-v1",
 )
-PORTED_VISION_IDS = ("resnet50",)
 
 
 def get_vision_config(name: str, *, reduced: bool = False):
     if name not in VISION_IDS:
         raise ValueError(f"unknown vision config {name!r}; one of {VISION_IDS}")
-    if name not in PORTED_VISION_IDS:
-        raise NotImplementedError(f"vision config {name!r}: not ported yet")
     mod = importlib.import_module(
         f"repro_torch.configs.{name.replace('-', '_')}")
     cfg = mod.CONFIG

@@ -17,7 +17,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.quant.qtensor import QuantizedTensor
 from repro_torch.vision import blocks as B
-from repro_torch.vision.models import ResNet, VisionConfig, _check_ported
+from repro_torch.vision import models as M
 
 
 def _tensor(a) -> torch.Tensor:
@@ -34,15 +34,56 @@ def _conv(p: dict) -> B.ConvBN:
     return B.ConvBN(_weight(p["w"]), _tensor(p["b"]))
 
 
-def params_from_jax(tree: dict, cfg: VisionConfig, *,
-                    device=None) -> torch.nn.Module:
-    """The port's model for ``cfg`` holding the weights of ``tree`` (a
-    reference pytree of numpy arrays), on ``device`` (None: CUDA)."""
-    _check_ported(cfg)
-    dev = resolve_device(device)
+def _dense(p: dict) -> B.Dense:
+    return B.Dense(_weight(p["w"]), _tensor(p["b"]))
+
+
+def _pair(p: dict) -> M.ConvPair:
+    return M.ConvPair(_conv(p["a"]), _conv(p["b"]))
+
+
+def _yolo_head(p: dict) -> M.YoloHead:
+    return M.YoloHead([_pair(q) for q in p["pairs"]], _conv(p["det"]))
+
+
+def _resnet(tree: dict, cfg: M.VisionConfig) -> M.ResNet:
     stages = [[B.Bottleneck(_conv(blk["conv1"]), _conv(blk["conv2"]),
                             _conv(blk["conv3"]),
                             _conv(blk["down"]) if "down" in blk else None)
                for blk in stage] for stage in tree["stages"]]
-    head = B.Dense(_weight(tree["head"]["w"]), _tensor(tree["head"]["b"]))
-    return ResNet(cfg, _conv(tree["stem"]), stages, head).to(dev)
+    return M.ResNet(cfg, _conv(tree["stem"]), stages, _dense(tree["head"]))
+
+
+def _mobilenet(tree: dict, cfg: M.VisionConfig) -> M.MobileNet:
+    blocks = [B.DWSeparable(_conv(b["dw"]), _conv(b["pw"]))
+              for b in tree["blocks"]]
+    return M.MobileNet(cfg, _conv(tree["stem"]), blocks,
+                       _dense(tree["head"]))
+
+
+def _yolov3_tiny(tree: dict, cfg: M.VisionConfig) -> M.YOLOv3Tiny:
+    return M.YOLOv3Tiny(cfg, [_conv(p) for p in tree["backbone"]],
+                        *(_conv(tree[k]) for k in ("conv7", "neck", "head1",
+                                                   "det1", "up", "head2",
+                                                   "det2")))
+
+
+def _yolov3(tree: dict, cfg: M.VisionConfig) -> M.YOLOv3:
+    stages = [M.DarknetStage(_conv(s["down"]), [_pair(r) for r in s["res"]])
+              for s in tree["stages"]]
+    return M.YOLOv3(cfg, _conv(tree["stem"]), stages,
+                    _yolo_head(tree["head1"]), _conv(tree["up1"]),
+                    _yolo_head(tree["head2"]), _conv(tree["up2"]),
+                    _yolo_head(tree["head3"]))
+
+
+_FROM_TREE = {"resnet": _resnet, "mobilenet_v1": _mobilenet,
+              "yolov3_tiny": _yolov3_tiny, "yolov3": _yolov3}
+
+
+def params_from_jax(tree: dict, cfg: M.VisionConfig, *,
+                    device=None) -> torch.nn.Module:
+    """The port's model for ``cfg`` holding the weights of ``tree`` (a
+    reference pytree of numpy arrays), on ``device`` (None: CUDA)."""
+    dev = resolve_device(device)
+    return _FROM_TREE[cfg.arch](tree, cfg).to(dev)

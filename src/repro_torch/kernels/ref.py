@@ -72,3 +72,13 @@ def conv2d_ref(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
     wn = w.float().permute(3, 2, 0, 1)                     # OIHW
     out = F.conv2d(xn, wn, stride=(sh, sw), groups=groups)
     return out.permute(0, 2, 3, 1).contiguous().to(out_dtype)
+
+
+def dwconv_ref(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
+               out_dtype=None) -> torch.Tensor:
+    """NHWC x (kh, kw, C) depthwise -> NHWC through ``F.conv2d`` with
+    ``groups=C``, float32 accumulation."""
+    out_dtype = out_dtype or x.dtype
+    kh, kw, C = w.shape
+    return conv2d_ref(x, w.reshape(kh, kw, 1, C), stride=stride,
+                      padding=padding, groups=C, out_dtype=out_dtype)

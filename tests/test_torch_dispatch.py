@@ -177,8 +177,9 @@ class TestPolicy:
                             torch.zeros(1, 1, 2, 2))
 
     def test_registry_contracts(self):
-        assert registry.kinds() == ["conv2d", "gemm", "gemv", "quant_conv2d",
-                                    "quant_gemm", "torch_conv2d",
+        assert registry.kinds() == ["conv2d", "dwconv", "gemm", "gemv",
+                                    "quant_conv2d", "quant_gemm",
+                                    "torch_conv2d", "torch_dwconv",
                                     "torch_einsum"]
         assert registry.meta("gemm").backend == "cuda"
         assert registry.meta("torch_conv2d").backend == "torch"

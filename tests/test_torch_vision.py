@@ -59,14 +59,12 @@ class TestConfig:
             return [(f.name, f.default) for f in dataclasses.fields(cls)]
         assert sig(models.VisionConfig) == sig(j_models.VisionConfig)
 
+    @pytest.mark.parametrize("reduced_", [False, True])
     @pytest.mark.parametrize("name", ["yolov3", "yolov3-tiny", "mobilenet-v1"])
-    def test_other_archs_not_ported_yet(self, name):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            get_vision_config(name)
-        cfg = models.VisionConfig(name=name, arch=name.replace("-", "_"),
-                                  stage_blocks=(1,) * 5)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            models.init(cfg, generator=torch.Generator(), device="cpu")
+    def test_other_configs_match_reference(self, name, reduced_):
+        want = j_get_vision_config(name, reduced=reduced_)
+        got = get_vision_config(name, reduced=reduced_)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
     def test_unknown_config_rejected(self):
         with pytest.raises(ValueError):
