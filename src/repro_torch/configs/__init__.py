@@ -1,12 +1,16 @@
 """Architecture configs of the port.
 
-``get_vision_config(name)`` resolves the conv-net zoo as the reference
-does: ResNet50, MobileNetV1, YOLOv3 and YOLOv3-tiny are all ported (the
-LM configs come with the LM slice).
+``get_config(name)`` resolves the LM ids the port serves as the
+reference does: ``get_config("yi-9b")``, or ``get_config("yi-9b",
+reduced=True)`` for the CPU test variant.  An LM config is added with the
+slice that first runs it.  ``get_vision_config(name)`` resolves the
+conv-net zoo: ResNet50, MobileNetV1, YOLOv3 and YOLOv3-tiny.
 """
 from __future__ import annotations
 
 import importlib
+
+ARCH_IDS = ("yi-9b",)
 
 VISION_IDS = (
     "resnet50",
@@ -16,10 +20,21 @@ VISION_IDS = (
 )
 
 
+def _load(name: str, *, reduced: bool):
+    mod_name = name.replace("-", "_").replace(".", "_")
+    cfg = importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+    return cfg.reduced() if reduced else cfg
+
+
+def get_config(name: str, *, reduced: bool = False):
+    if name in VISION_IDS:
+        raise ValueError(f"{name!r} is a vision config: use get_vision_config")
+    if name not in ARCH_IDS:
+        raise ValueError(f"unknown LM config {name!r}; one of {ARCH_IDS}")
+    return _load(name, reduced=reduced)
+
+
 def get_vision_config(name: str, *, reduced: bool = False):
     if name not in VISION_IDS:
         raise ValueError(f"unknown vision config {name!r}; one of {VISION_IDS}")
-    mod = importlib.import_module(
-        f"repro_torch.configs.{name.replace('-', '_')}")
-    cfg = mod.CONFIG
-    return cfg.reduced() if reduced else cfg
+    return _load(name, reduced=reduced)

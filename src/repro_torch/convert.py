@@ -8,13 +8,23 @@ weight arrives as the plain dict ``{"q", "scale", "act_scale", "axis",
 "dtype_name", "bits", "pack_size"}`` with numpy children and becomes a
 ``QuantizedTensor``, so a JAX-quantized and JAX-calibrated pytree runs in
 the port unchanged.
+
+:func:`lm_params_from_jax` does the same for the reference's LM pytree,
+whose stages hold each layer's weights stacked along a leading layer axis
+(the reference scans over them): it slices layer ``i`` out of every
+stacked leaf, a stacked quantized weight included (int4: ``q`` of shape
+``(L, ceil(K/2), N)``, ``scale`` ``(L, 1, N)``, ``pack_size`` kept), into
+the port's one module per layer.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import layers as LL
+from repro_torch.models import transformer as TT
 from repro_torch.quant.qtensor import QuantizedTensor
 from repro_torch.vision import blocks as B
 from repro_torch.vision import models as M
@@ -87,3 +97,41 @@ def params_from_jax(tree: dict, cfg: M.VisionConfig, *,
     reference pytree of numpy arrays), on ``device`` (None: CUDA)."""
     dev = resolve_device(device)
     return _FROM_TREE[cfg.arch](tree, cfg).to(dev)
+
+
+def _layer(a, i: int):
+    """Layer ``i`` of a stacked leaf: an array, or a quantized weight's
+    dict (its ``act_scale`` sliced too when it is per layer)."""
+    if isinstance(a, dict):
+        act = a.get("act_scale")
+        return dict(a, q=np.asarray(a["q"])[i],
+                    scale=np.asarray(a["scale"])[i],
+                    act_scale=None if act is None else np.asarray(act)[i])
+    return np.asarray(a)[i]
+
+
+def _lm_block(layers: dict, i: int, cfg: ModelConfig) -> TT.Block:
+    attn, ffn = layers["attn"], layers["ffn"]
+    w = lambda d, k: _weight(_layer(d[k], i))               # noqa: E731
+    biases = tuple(_tensor(_layer(attn[k], i)) for k in ("bq", "bk", "bv")) \
+        if cfg.qkv_bias else ()
+    return TT.Block(
+        LL.RMSNorm(_tensor(_layer(layers["ln1"]["scale"], i))),
+        LL.Attention(w(attn, "wq"), w(attn, "wk"), w(attn, "wv"),
+                     w(attn, "wo"), *biases),
+        LL.RMSNorm(_tensor(_layer(layers["ln2"]["scale"], i))),
+        LL.MLP(w(ffn, "w_gate"), w(ffn, "w_up"), w(ffn, "w_down")))
+
+
+def lm_params_from_jax(tree: dict, cfg: ModelConfig, *,
+                       device=None) -> TT.LM:
+    """The port's LM for ``cfg`` holding the weights of ``tree`` (the
+    reference's LM pytree of numpy arrays), on ``device`` (None: CUDA)."""
+    TT.check_ported(cfg)
+    dev = resolve_device(device)
+    stages = [TT.Stage([_lm_block(p_s["layers"], i, cfg)
+                        for i in range(s.n_layers)])
+              for p_s, s in zip(tree["stages"], cfg.stages, strict=True)]
+    return TT.LM(cfg, _tensor(tree["embed"]), stages,
+                 LL.RMSNorm(_tensor(tree["final_norm"]["scale"])),
+                 _weight(tree["lm_head"])).to(dev)

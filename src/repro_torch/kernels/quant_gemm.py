@@ -1,7 +1,7 @@
 """Quantized kernels with a fused dequantize epilogue: CUDA kernels and
 plain versions.
 
-Port of three kernels of ``repro.kernels.quant_gemm``:
+Port of five kernels of ``repro.kernels.quant_gemm``:
 
   * ``quant_gemm``       : ``(M, K) int8 x (K, N) int8 -> float32`` with
                            int32 accumulation, or the weight-only form
@@ -9,6 +9,13 @@ Port of three kernels of ``repro.kernels.quant_gemm``:
                            load, float32 accumulation) -- ``csrc/quant_gemm.cu``.
   * ``wq_gemv``          : small-M float32 rows against a streamed int8
                            weight, split-K -- ``csrc/wq_gemv.cu``.
+  * ``int4_gemm``        : float32 ``(M, K)`` against a nibble-packed int4
+                           weight ``(ceil(K/2), N)``, unpacked at its
+                           shared-memory load, float32 accumulation --
+                           ``csrc/int4_gemm.cu``.
+  * ``int4_gemv``        : the small-M form of ``int4_gemm``, each packed
+                           byte streamed once and feeding two k rows,
+                           split-K -- ``csrc/int4_gemv.cu``.
   * ``quant_im2col_conv``: the implicit-im2col conv with int8 input and
                            filter and int32 accumulation --
                            ``csrc/quant_im2col_conv.cu``.
@@ -20,7 +27,9 @@ exact up to that one rounding, and their plain versions here compute the
 integer products in float64 -- exact, since ``|acc| <= 127^2 * K`` stays
 far below 2^53 -- before the same cast and multiply, so kernel and plain
 version agree bit for bit.  (``torch.matmul`` on int8 is no oracle: on
-the CPU it returns int8 and wraps, and CUDA has no integer matmul.)
+the CPU it returns int8 and wraps, and CUDA has no integer matmul.)  The
+weight-only and int4 forms sum float32 products, in another order than
+their plain versions: they agree to float32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch.kernels.gemv import MAX_BATCH, split_k
 from repro_torch.kernels.im2col_conv import pixel_tile
 from repro_torch.kernels.ref import (conv_out_hw, normalize_padding,
                                      normalize_stride)
+from repro_torch.quant.qtensor import unpack_int4
 
 MAX_CIN_CHUNK = 128    # deepest int8 channel chunk held in shared memory
 
@@ -164,6 +174,131 @@ def wq_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
 
 
 wq_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int4_gemm / int4_gemv: nibble-packed weight-only
+# ---------------------------------------------------------------------------
+
+
+def _check_packed(what: str, a: torch.Tensor, w: torch.Tensor,
+                  k_size: int) -> None:
+    K = a.shape[1]
+    if K != k_size or w.shape[0] != (K + 1) // 2 or w.dtype != torch.int8:
+        raise ValueError(f"{what}: a {tuple(a.shape)}, packed w "
+                         f"{tuple(w.shape)} {w.dtype}, k_size {k_size} (w "
+                         "must be int8 of shape (ceil(K/2), N))")
+
+
+def int4_gemm_plain(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                    *, k_size: int, out_dtype=None) -> torch.Tensor:
+    """The same function in plain PyTorch: the weight unpacked
+    (``qtensor.unpack_int4``, the kernel's convention), a float32 product,
+    then the column scale."""
+    wf = unpack_int4(w, k_size, axis=0).float()
+    return _scaled(torch.matmul(a.float(), wf), scale, out_dtype)
+
+
+int4_gemv_plain = int4_gemm_plain     # the same function at M <= 8
+
+
+def _int4_gemm_entry():
+    fn = _build.load("int4_gemm").int4_gemm
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def int4_gemm(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
+              k_size: int, block: tuple[int, int, int] = (128, 128, 128),
+              out_dtype=None) -> torch.Tensor:
+    """``(a (M, K) @ unpack(w) (K, N)) * scale[col]`` with ``a`` float32 and
+    ``w`` nibble-packed along K, ``(ceil(K/2), N)`` int8; ``k_size`` is the
+    logical K.  ``block = (bm, bk, bn)``: ``bm`` / ``bn`` pick the kernel's
+    output tile as in :func:`quant_gemm`; the kernel walks all of K 16 deep
+    (an even step), so ``bk`` is not used."""
+    M, K = a.shape
+    N = w.shape[1]
+    _check_packed("int4_gemm", a, w, k_size)
+    _check_scale("int4_gemm", scale, N)
+    if on_cpu(a, w, scale):
+        return int4_gemm_plain(a, w, scale, k_size=k_size,
+                               out_dtype=out_dtype)
+    dev = check_operands("int4_gemm", a, w, scale, dtypes=(
+        torch.float32, torch.int8, torch.float32))
+    check_out_dtype("int4_gemm", out_dtype)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    status = _int4_gemm_entry()(
+        a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
+        N, kernel_tile(block[0]), kernel_tile(block[2]),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "int4_gemm")
+    int4_gemm.launches += 1
+    return out
+
+
+int4_gemm.launches = 0
+
+
+def int4_split_k(K: int, N: int, sms: int, block_k: int) -> tuple[int, int]:
+    """``gemv.split_k``'s (kc, ksplit), with kc even whenever K is split,
+    so that every chunk starts on a whole packed byte."""
+    kc, ksplit = split_k(K, N, sms, max(2, block_k + block_k % 2))
+    if ksplit > 1 and kc % 2:
+        kc += 1
+        ksplit = -(-K // kc)
+    return kc, ksplit
+
+
+def _int4_gemv_entry():
+    fn = _build.load("int4_gemv").int4_gemv
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
+              k_size: int, block_k: int = 512, out_dtype=None
+              ) -> torch.Tensor:
+    """``(x (B, K) @ unpack(w) (K, N)) * scale[col]`` with B <= 8, ``x``
+    float32 and ``w`` nibble-packed along K.  ``block_k`` caps the K depth
+    one CTA walks (made even, as the reference forces its ``bk`` even); the
+    wrapper splits K further until the grid covers the card.  The
+    reference's ``block_n`` has no counterpart: a CTA takes 128 columns."""
+    B, K = x.shape
+    N = w.shape[1]
+    _check_packed("int4_gemv", x, w, k_size)
+    _check_scale("int4_gemv", scale, N)
+    if on_cpu(x, w, scale):
+        return int4_gemv_plain(x, w, scale, k_size=k_size,
+                               out_dtype=out_dtype)
+    dev = check_operands("int4_gemv", x, w, scale, dtypes=(
+        torch.float32, torch.int8, torch.float32))
+    check_out_dtype("int4_gemv", out_dtype)
+    if not 1 <= B <= MAX_BATCH:
+        raise ValueError(f"int4_gemv: batch {B} outside 1..{MAX_BATCH}")
+    if block_k < 1:
+        raise ValueError(f"int4_gemv: block_k must be >= 1, got {block_k}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kc, ksplit = int4_split_k(K, N, sms, block_k)
+    if 4 * B * kc > hw.SMEM_STATIC_LIMIT:
+        raise ValueError(f"int4_gemv: a K chunk of {kc} rows does not fit "
+                         "shared memory; lower block_k")
+    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    partial = torch.empty((ksplit if ksplit > 1 else 0, B, N),
+                          dtype=torch.float32, device=dev)
+    status = _int4_gemv_entry()(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), B, K, N, kc, ksplit,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "int4_gemv")
+    int4_gemv.launches += 1
+    return out
+
+
+int4_gemv.launches = 0
 
 
 # ---------------------------------------------------------------------------

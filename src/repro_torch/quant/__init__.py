@@ -1,18 +1,20 @@
-"""``repro_torch.quant`` -- post-training int8 quantization of the port.
+"""``repro_torch.quant`` -- post-training quantization of the port.
 
 Quantize once (:func:`quantize_model` with calibration, or
 :func:`quantize_vision` for weight-only), then serve many: the quantized
 model drops into ``VisionEngine``, which flips its policy to
 ``precision="int8"`` so every conv runs the int8 implicit-im2col kernel
 and the dense head the int8 GeMM (calibrated), or the float kernels on
-dequantized weights and the weight-only GeMM / GEMV (weight-only).  Under
+dequantized weights and the weight-only GeMM / GEMV (weight-only).  An LM
+quantized by :func:`quantize_lm_weights` (int8 or packed int4, weight-
+only) drops into ``serve.ServeEngine`` the same way: its projections run
+the weight-only int8 or the int4 GeMM / GEMV.  Under
 ``precision="float"`` or ``backend="torch"`` a quantized weight
 dequantizes onto the float path.
 
-Port of the vision half of ``repro.quant``.  The int4 and fp8 storage
-formats convert and dequantize payload for payload, but their kernel
-routes raise "not ported yet"; the LM calibration (``quantize_lm``) comes
-with the LM slice.
+Port of ``repro.quant`` but for the calibrated LM walk (``quantize_lm``).
+The fp8 storage format converts and dequantizes payload for payload, but
+its kernel route raises "not ported yet".
 """
 from repro_torch.quant.calibrate import (
     Calibration,
@@ -22,7 +24,8 @@ from repro_torch.quant.calibrate import (
     calibration,
     current_calibration,
 )
-from repro_torch.quant.ptq import quantize_model, quantize_vision
+from repro_torch.quant.ptq import (LM_WEIGHT_KEYS, quantize_lm_weights,
+                                   quantize_model, quantize_vision)
 from repro_torch.quant.qtensor import (
     FP8_DTYPE,
     FP8_MAX,
@@ -41,6 +44,7 @@ __all__ = [
     "Calibration",
     "FP8_DTYPE",
     "FP8_MAX",
+    "LM_WEIGHT_KEYS",
     "MinMaxObserver",
     "OBSERVERS",
     "PercentileObserver",
@@ -52,6 +56,7 @@ __all__ = [
     "is_quantized",
     "pack_int4",
     "quantize_activation",
+    "quantize_lm_weights",
     "quantize_model",
     "quantize_vision",
     "quantize_weight",

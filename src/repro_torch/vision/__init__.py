@@ -1,1 +1,1 @@
-"""The conv-net model zoo and its serving engine (ResNet50 in this slice)."""
+"""The conv-net model zoo and its serving engine."""
