@@ -3,14 +3,14 @@
 Published figures (NVIDIA H100 data sheet; dense rates, full power limit):
 
   * SXM5 (name "NVIDIA H100 80GB HBM3"): 132 SMs, 67 TFLOP/s float32 on
-    the CUDA cores, 1,979 TOP/s int8 on the tensor cores, 3.35 TB/s HBM3,
-    80 GB.
-  * PCIe (name "NVIDIA H100 PCIe"): 114 SMs, 51 TFLOP/s float32, 1,513
-    TOP/s int8, 2.0 TB/s HBM2e, 80 GB.
-  * NVL (name "NVIDIA H100 NVL"): 132 SMs, 60 TFLOP/s float32, 1,670 TOP/s
-    int8, 3.9 TB/s, 94 GB.
+    the CUDA cores, 989 TFLOP/s bf16 and 1,979 TFLOP/s fp8 / TOP/s int8 on
+    the tensor cores, 3.35 TB/s HBM3, 80 GB.
+  * PCIe (name "NVIDIA H100 PCIe"): 114 SMs, 51 TFLOP/s float32, 756
+    TFLOP/s bf16, 1,513 fp8 / int8, 2.0 TB/s HBM2e, 80 GB.
+  * NVL (name "NVIDIA H100 NVL"): 132 SMs, 60 TFLOP/s float32, 835 TFLOP/s
+    bf16, 1,670 fp8 / int8, 3.9 TB/s, 94 GB.
 
-The int8 rates are the data sheets' sparse figures halved (dense).
+The tensor-core rates are the data sheets' sparse figures halved (dense).
 
 Every variant lets one thread block use 227 KB (232,448 bytes) of shared
 memory, above 48 KB only as opt-in dynamic shared memory.  The variant is
@@ -29,6 +29,8 @@ class ChipSpec:
     smem_per_block: int        # bytes one CTA may opt in to
     peak_fp32_flops: float     # FLOP/s, CUDA-core FMA (no tensor cores)
     peak_int8_ops: float       # OP/s, dense int8 on the tensor cores
+    peak_fp8_flops: float      # FLOP/s, dense fp8 on the tensor cores
+    peak_bf16_flops: float     # FLOP/s, dense bf16 on the tensor cores
     hbm_bw: float              # bytes/s
     hbm_bytes: float
 
@@ -39,12 +41,15 @@ SMEM_STATIC_LIMIT = 48 * 1024
 
 H100_SXM = ChipSpec(name="h100_sxm", sms=132, smem_per_block=SMEM_PER_BLOCK,
                     peak_fp32_flops=67e12, peak_int8_ops=1979e12,
+                    peak_fp8_flops=1979e12, peak_bf16_flops=989e12,
                     hbm_bw=3.35e12, hbm_bytes=80e9)
 H100_PCIE = ChipSpec(name="h100_pcie", sms=114,
                      smem_per_block=SMEM_PER_BLOCK, peak_fp32_flops=51e12,
-                     peak_int8_ops=1513e12, hbm_bw=2.0e12, hbm_bytes=80e9)
+                     peak_int8_ops=1513e12, peak_fp8_flops=1513e12,
+                     peak_bf16_flops=756e12, hbm_bw=2.0e12, hbm_bytes=80e9)
 H100_NVL = ChipSpec(name="h100_nvl", sms=132, smem_per_block=SMEM_PER_BLOCK,
                     peak_fp32_flops=60e12, peak_int8_ops=1670e12,
+                    peak_fp8_flops=1670e12, peak_bf16_flops=835e12,
                     hbm_bw=3.9e12, hbm_bytes=94e9)
 
 

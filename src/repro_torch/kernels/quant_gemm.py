@@ -1,7 +1,7 @@
 """Quantized kernels with a fused dequantize epilogue: CUDA kernels and
 plain versions.
 
-Port of five kernels of ``repro.kernels.quant_gemm``:
+Port of the six kernels of ``repro.kernels.quant_gemm``:
 
   * ``quant_gemm``       : ``(M, K) int8 x (K, N) int8 -> float32`` with
                            int32 accumulation, or the weight-only form
@@ -16,6 +16,10 @@ Port of five kernels of ``repro.kernels.quant_gemm``:
   * ``int4_gemv``        : the small-M form of ``int4_gemm``, each packed
                            byte streamed once and feeding two k rows,
                            split-K -- ``csrc/int4_gemv.cu``.
+  * ``fp8_gemm``         : e4m3 (or float32, weight-only) ``(M, K)`` x
+                           e4m3 ``(K, N)``, both decoded to float32 at
+                           their shared-memory load, float32 accumulation
+                           -- ``csrc/fp8_gemm.cu``.
   * ``quant_im2col_conv``: the implicit-im2col conv with int8 input and
                            filter and int32 accumulation --
                            ``csrc/quant_im2col_conv.cu``.
@@ -28,8 +32,9 @@ integer products in float64 -- exact, since ``|acc| <= 127^2 * K`` stays
 far below 2^53 -- before the same cast and multiply, so kernel and plain
 version agree bit for bit.  (``torch.matmul`` on int8 is no oracle: on
 the CPU it returns int8 and wraps, and CUDA has no integer matmul.)  The
-weight-only and int4 forms sum float32 products, in another order than
-their plain versions: they agree to float32 rounding, not bit for bit.
+weight-only, int4 and fp8 forms sum float32 products (e4m3 decodes to
+float32 exactly), in another order than their plain versions: they agree
+to float32 rounding, not bit for bit.
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from repro_torch.kernels.gemv import MAX_BATCH, split_k
 from repro_torch.kernels.im2col_conv import pixel_tile
 from repro_torch.kernels.ref import (conv_out_hw, normalize_padding,
                                      normalize_stride)
-from repro_torch.quant.qtensor import unpack_int4
+from repro_torch.quant.qtensor import FP8_DTYPE, unpack_int4
 
 MAX_CIN_CHUNK = 128    # deepest int8 channel chunk held in shared memory
 
@@ -299,6 +304,62 @@ def int4_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
 
 
 int4_gemv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fp8_gemm: e4m3 operands, float32 accumulation
+# ---------------------------------------------------------------------------
+
+
+def fp8_gemm_plain(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
+                   *, out_dtype=None) -> torch.Tensor:
+    """The same function in plain PyTorch: both operands cast up to
+    float32 (exact for e4m3; ``torch.matmul`` takes no float8), a float32
+    product, then the column scale."""
+    return _scaled(torch.matmul(a.float(), b.float()), scale, out_dtype)
+
+
+def _fp8_gemm_entry():
+    fn = _build.load("fp8_gemm").fp8_gemm
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fp8_gemm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor, *,
+             block: tuple[int, int, int] = (128, 128, 128),
+             out_dtype=None) -> torch.Tensor:
+    """``(a (M, K) @ b (K, N)) * scale[col]``: ``b`` e4m3
+    (``float8_e4m3fn``), ``a`` e4m3 or float32 (weight-only), float32
+    accumulation.  ``block = (bm, bk, bn)``: ``bm`` / ``bn`` pick the
+    kernel's output tile as in :func:`quant_gemm`; the kernel walks all of
+    K (the OS order), so ``bk`` is not used.  There is no GEMV form: decode
+    rows take this kernel too."""
+    M, K = a.shape
+    K2, N = b.shape
+    if K != K2 or b.dtype != FP8_DTYPE:
+        raise ValueError(f"fp8_gemm: a {tuple(a.shape)}, b {tuple(b.shape)} "
+                         f"{b.dtype} (b must be {FP8_DTYPE})")
+    _check_scale("fp8_gemm", scale, N)
+    if on_cpu(a, b, scale):
+        return fp8_gemm_plain(a, b, scale, out_dtype=out_dtype)
+    a_fp8 = a.dtype == FP8_DTYPE
+    dev = check_operands("fp8_gemm", a, b, scale, dtypes=(
+        FP8_DTYPE if a_fp8 else torch.float32, FP8_DTYPE, torch.float32))
+    check_out_dtype("fp8_gemm", out_dtype)
+    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    # float8 payloads cross to C as their bytes
+    status = _fp8_gemm_entry()(
+        a.data_ptr(), b.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
+        N, kernel_tile(block[0]), kernel_tile(block[2]), int(a_fp8),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(status, "fp8_gemm")
+    fp8_gemm.launches += 1
+    return out
+
+
+fp8_gemm.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -82,3 +82,11 @@ def dwconv_ref(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
     kh, kw, C = w.shape
     return conv2d_ref(x, w.reshape(kh, kw, 1, C), stride=stride,
                       padding=padding, groups=C, out_dtype=out_dtype)
+
+
+def zero_gate_gemm_ref(a: torch.Tensor, b: torch.Tensor, bm: int, bk: int,
+                       out_dtype=None) -> torch.Tensor:
+    """Matmul with A's all-zero ``(bm, bk)`` blocks contributing nothing:
+    the plain matmul (zero blocks contribute zero), the zero-gated
+    kernel's stated semantic oracle."""
+    return gemm_ref(a, b, out_dtype)

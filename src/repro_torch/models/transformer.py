@@ -8,11 +8,12 @@ norm and the untied head.  The caches are a dict of per-slot position
 counters and, per stage, a list of per-layer ``{"attn": {"k", "v",
 "len"}}`` slot caches; the steps update them in place and return them.
 
-Ported: ``init_params``, ``init_caches``, ``prefill_step`` (the
-teacher-forced chunk step the serving engine runs), ``decode_step`` and
-``reset_slots``.  MoE, MLA, SSM and hybrid stages, sliding windows,
-embedding frontends, tied embeddings, the uncached ``forward`` / loss
-and the paged cache raise "not ported yet".
+Ported: ``init_params``, ``init_caches``, the uncached ``forward`` (the
+hidden state after the final norm, which the LM calibration walk runs),
+``prefill_step`` (the teacher-forced chunk step the serving engine runs),
+``decode_step`` and ``reset_slots``.  MoE, MLA, SSM and hybrid stages,
+sliding windows, embedding frontends, tied embeddings and the paged cache
+raise "not ported yet"; the loss comes with training.
 """
 from __future__ import annotations
 
@@ -133,16 +134,20 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def block_fwd(p: Block, x: torch.Tensor, cfg: ModelConfig, stage: StageCfg,
-              *, positions, cache: dict, valid=None):
-    """-> (x, cache): S >= 1 teacher-forced tokens per slot against the
-    layer's slot cache; padded tokens (``valid`` False) write nothing."""
+              *, positions, cache: dict | None = None, exact_causal=False,
+              valid=None):
+    """-> (x, cache).  With the layer's slot cache: S >= 1 teacher-forced
+    tokens per slot, padded tokens (``valid`` False) writing nothing.
+    Without one (None): causal attention over the S tokens."""
     h = L.rmsnorm(p.ln1, x)
-    a, attn_cache = L.attention_fwd(p.attn, h, cfg, positions=positions,
-                                    window=stage.window, cache=cache["attn"],
-                                    valid=valid)
+    a, attn_cache = L.attention_fwd(
+        p.attn, h, cfg, positions=positions, window=stage.window,
+        cache=None if cache is None else cache["attn"],
+        exact_causal=exact_causal, valid=valid)
     x = x + a
     x = x + L.mlp_fwd(p.ffn, L.rmsnorm(p.ln2, x))
-    cache["attn"] = attn_cache
+    if cache is not None:
+        cache["attn"] = attn_cache
     return x, cache
 
 
@@ -157,6 +162,24 @@ def stage_decode(p: Stage, x, caches: dict, cfg: ModelConfig,
 def _embed(params: LM, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     tokens = torch.as_tensor(batch["tokens"], device=params.embed.device)
     return params.embed[tokens.long()].to(cfg.cdtype)
+
+
+@torch.no_grad()
+def forward(params: LM, batch: dict, cfg: ModelConfig, *,
+            exact_causal: bool | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uncached forward of ``batch["tokens"] (B, S)`` -> (hidden (B, S, D)
+    after the final norm, aux loss), the dense stages' aux loss being 0."""
+    check_ported(cfg)
+    exact_causal = cfg.exact_causal if exact_causal is None else exact_causal
+    x = _embed(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p_s, s in zip(params.stages, cfg.stages, strict=True):
+        for layer in p_s.layers:
+            x, _ = block_fwd(layer, x, cfg, s, positions=positions,
+                             exact_causal=exact_causal)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return L.rmsnorm(params.final_norm, x), aux
 
 
 def _head_logits(params: LM, x: torch.Tensor,

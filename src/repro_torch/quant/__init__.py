@@ -8,13 +8,14 @@ and the dense head the int8 GeMM (calibrated), or the float kernels on
 dequantized weights and the weight-only GeMM / GEMV (weight-only).  An LM
 quantized by :func:`quantize_lm_weights` (int8 or packed int4, weight-
 only) drops into ``serve.ServeEngine`` the same way: its projections run
-the weight-only int8 or the int4 GeMM / GEMV.  Under
+the weight-only int8 or the int4 GeMM / GEMV; an fp8 one runs the e4m3
+GeMM under ``precision="fp8"``.  :func:`quantize_lm` calibrates an LM's
+activation scales too, so its int8 model serves int8 x int8 on the int8
+GeMM (and its fp8 model quantizes activations to e4m3).  Under
 ``precision="float"`` or ``backend="torch"`` a quantized weight
 dequantizes onto the float path.
 
-Port of ``repro.quant`` but for the calibrated LM walk (``quantize_lm``).
-The fp8 storage format converts and dequantizes payload for payload, but
-its kernel route raises "not ported yet".
+Port of ``repro.quant``.
 """
 from repro_torch.quant.calibrate import (
     Calibration,
@@ -24,7 +25,8 @@ from repro_torch.quant.calibrate import (
     calibration,
     current_calibration,
 )
-from repro_torch.quant.ptq import (LM_WEIGHT_KEYS, quantize_lm_weights,
+from repro_torch.quant.ptq import (LM_WEIGHT_KEYS, lm_calibration_forward,
+                                   quantize_lm, quantize_lm_weights,
                                    quantize_model, quantize_vision)
 from repro_torch.quant.qtensor import (
     FP8_DTYPE,
@@ -54,8 +56,10 @@ __all__ = [
     "current_calibration",
     "dequantize",
     "is_quantized",
+    "lm_calibration_forward",
     "pack_int4",
     "quantize_activation",
+    "quantize_lm",
     "quantize_lm_weights",
     "quantize_model",
     "quantize_vision",

@@ -10,7 +10,8 @@ to model code.  :meth:`Calibration.finalize` then writes the observed
 
 The observers reduce on the host with numpy, as the reference does: each
 observed activation is copied off the card.  The reference's per-layer
-aliasing of scan-stacked LM weights comes with the LM slice.
+aliasing of scan-stacked LM weights has no counterpart: the port's LM
+layers are separate modules, so each layer's weight is its own site.
 """
 from __future__ import annotations
 

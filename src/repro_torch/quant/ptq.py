@@ -1,6 +1,6 @@
 """Post-training quantization: float model in, quantized model out.
 
-Port of ``repro.quant.ptq`` but for the calibrated LM walk.  The quantized
+Port of ``repro.quant.ptq``.  The quantized
 model is the same ``nn.Module`` structure with weights swapped for
 :class:`~repro_torch.quant.qtensor.QuantizedWeight`, so the model code and
 the engines run it unchanged and the dispatcher picks the quantized
@@ -20,9 +20,15 @@ kernels or the dequantized float path per call.
     as the reference: on the port's per-layer modules that is one scale
     per layer and column, what the reference gets from its stacked
     ``(L, K, N)`` weights.  A weight-only model (int8, packed int4 or fp8).
+  * :func:`quantize_lm` -- that, then :func:`lm_calibration_forward` (the
+    uncached forward and the head) run eagerly over calibration batches in
+    a calibration scope, and one activation scale per projection written
+    into its weight.  The port's layers are separate modules, so each
+    per-layer weight is its own calibration site: layer l's scale is row l
+    of the reference's stacked ``(L, 1, 1)`` scale, with no slice aliases
+    needed.  The result serves as calibrated activation int8 (or fp8).
 
-All three leave the float model as it was and return a new one.  The
-calibrated LM walk (``quantize_lm``) is not ported yet.
+All four leave the float model as it was and return a new one.
 """
 from __future__ import annotations
 
@@ -97,3 +103,33 @@ def quantize_lm_weights(model: nn.Module,
                 setattr(m, name, QuantizedWeight(quantize_weight(
                     w.detach(), axis=-1, reduce_axes=(-2,), fmt=fmt)))
     return qmodel
+
+
+def lm_calibration_forward(qmodel: nn.Module, batch: dict, cfg):
+    """The LM's uncached forward (``transformer.forward``) and its head:
+    every quantized projection, layer by layer and the head, sees its
+    concrete activation through the dispatcher's calibration tap.
+    Returns the logits."""
+    from repro_torch.models import transformer as T   # deferred: a cycle
+    x, _ = T.forward(qmodel, batch, cfg, exact_causal=False)
+    return T._head_logits(qmodel, x, cfg)
+
+
+def quantize_lm(model: nn.Module, cfg, calib_batches: Iterable[Any], *,
+                fmt: str = "int8", observer: str = "percentile") -> nn.Module:
+    """LM PTQ: per-column projection weights (:func:`quantize_lm_weights`)
+    and a calibrated activation scale per projection and layer.
+
+    Runs :func:`lm_calibration_forward` over ``calib_batches`` (dicts with
+    ``"tokens"``) inside a calibration scope and writes the observed scales
+    in.  ``fmt="int4"`` / ``"fp8"`` quantize the weights at those widths;
+    int4 stays weight-only at dispatch (its scales are recorded, unused)."""
+    qmodel = quantize_lm_weights(model, fmt=fmt)
+    with C.calibration(observer) as calib:
+        for batch in calib_batches:
+            lm_calibration_forward(qmodel, batch, cfg)
+    if calib.n_sites == 0:
+        raise ValueError(
+            "calibration observed no quantized call sites -- check that the "
+            "config matches the params and the batches are non-empty")
+    return calib.finalize(qmodel)

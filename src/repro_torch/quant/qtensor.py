@@ -11,9 +11,8 @@ dequantize-to-float path.
 Three storage formats share the container (``fmt``): ``int8`` (1 byte per
 element, symmetric), ``int4`` (two nibbles packed per int8 byte along axis
 ``-2``, values in [-7, 7], weight-only) and ``fp8`` (``float8_e4m3fn``,
-each channel's abs-max on e4m3's top of range, 448).  The port has kernels
-for ``int8`` and ``int4``; ``fp8`` converts and dequantizes payload for
-payload like the reference, and its kernel route raises.
+each channel's abs-max on e4m3's top of range, 448), each with its kernels
+in the port, payload for payload with the reference.
 
 Layout rules kept from the reference: the channel ``axis`` is stored
 negative, ``scale`` / ``act_scale`` keep reduced dims as size 1, and int4

@@ -12,9 +12,12 @@ the KV caches of live ones.
 
 Steps run eagerly on the device (one CUDA graph per declared width is later
 work); the host takes the sampled tokens back each step.  A quantized model
-(``quant.quantize_lm_weights``, int8 or packed int4) is served at
-``precision="int8"`` through the weight-only kernels, and ``attn_int8``
-routes every layer's cached attention through the int8 flash kernel.
+(``quant.quantize_lm_weights``, int8, packed int4 or fp8, or a calibrated
+``quant.quantize_lm`` one) is served at the precision its weights' storage
+format asks for: ``"fp8"`` when every quantized weight is e4m3 (the e4m3
+GeMM), ``"int8"`` otherwise (the int8 and int4 kernels), and
+``attn_int8`` routes every layer's cached attention through the int8
+flash kernel.
 ``paged=``, ``mesh=``, ``decouple_prefill=`` and ``WaveServeEngine`` are
 not ported yet.  Sampling (``temperature > 0``) draws from the engine's
 ``torch.Generator``, so it gives other tokens than the reference's
@@ -123,13 +126,13 @@ class ServeEngine:
       queue_policy  : 'fifo' (arrival order) or 'sjf' (shortest prompt
                       first)
       quantized     : True / "int8" = weight-only int8, "int4" = packed
-                      int4 -- the projection weights are quantized per
-                      output column at construction
+                      int4, "fp8" = e4m3 -- the projection weights are
+                      quantized per output column at construction
                       (``quant.quantize_lm_weights``; a pre-quantized
-                      model is taken as it is).  Either way the step
-                      serves at ``precision="int8"``, so the projections
-                      stream their quantized weights through the
-                      weight-only kernels.  "fp8" raises: not ported yet.
+                      model, such as a calibrated ``quant.quantize_lm``
+                      one, is taken as it is).  Either way the step serves
+                      at reduced precision: ``"fp8"`` when every quantized
+                      weight is e4m3, ``"int8"`` otherwise.
       attn_int8     : route every layer's cached attention through the int8
                       flash kernel with per-head scales (kernel backends
                       only; ``backend="torch"`` stays float).
