@@ -2,16 +2,18 @@
 
 Each ``csrc/<name>.cu`` compiles, with a plain C interface, into its own
 shared library ``build/repro_torch/lib<name>-<hash>.so`` at the root of
-the checkout (the hash covers the source and the flags, so an edited
-source rebuilds).  :func:`build` starts one ``nvcc`` per missing library,
-all together, and raises if any of them fails; :func:`load` opens one
-library with ``ctypes``.  Nothing here runs at import.
+the checkout (the hash covers the source, the ``csrc/*.cuh`` headers it
+includes and the flags, so an edited source or header rebuilds).
+:func:`build` starts one ``nvcc`` per missing library, all together, and
+raises if any of them fails; :func:`load` opens one library with
+``ctypes``.  Nothing here runs at import.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -43,10 +45,29 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: set[Path]) -> list[bytes]:
+    """``path``'s bytes, then those of every ``csrc/`` header it includes
+    (with quotes), depth first, each once."""
+    if path in seen:
+        return []
+    seen.add(path)
+    text = path.read_bytes()
+    out = [text]
+    for inc in _INCLUDE.findall(text):
+        header = CSRC / inc.decode()
+        if header.exists():
+            out += _sources(header, seen)
+    return out
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    parts = _sources(CSRC / f"{name}.cu", set())
+    digest = hashlib.sha1(b"\0".join(parts)
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -94,6 +115,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+def check_constants(lib: ctypes.CDLL, symbol: str,
+                    want: tuple[int, ...]) -> None:
+    """Raise unless ``symbol(int*)`` of ``lib`` writes ``want``: the tile
+    constants of a source that its wrapper's planner copies."""
+    got = (ctypes.c_int * len(want))()
+    fn = getattr(lib, symbol)
+    fn.argtypes, fn.restype = [ctypes.c_void_p], None
+    fn(got)
+    if tuple(got) != tuple(want):
+        raise RuntimeError(f"{symbol}: the source has {tuple(got)}, the "
+                           f"wrapper's planner {tuple(want)}")
 
 
 def check(status: int, what: str) -> None:

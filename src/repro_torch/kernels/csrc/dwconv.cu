@@ -1,5 +1,7 @@
-// Depthwise float32 convolution, NHWC x (kh, kw, C) -> NHWC, for Hopper
-// (sm_90a), on the CUDA cores.
+// Depthwise convolution, NHWC x (kh, kw, C) -> NHWC, for Hopper (sm_90a),
+// on the CUDA cores: float32 or bfloat16 input and filter (one dtype),
+// widened to float32 as they are stored in shared memory (exact), float32
+// multiply-adds, and a float32 or bfloat16 output rounded once.
 //
 // Replaces: src/repro/kernels/dwconv.py::dwconv (pallas_call at
 // dwconv.py:80), the TPU kernel that keeps a row tile and its halo of a
@@ -27,15 +29,18 @@
 
 #include <cuda_runtime.h>
 
+#include "dtypes.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCB = 32;                   // channels per CTA: one per lane
 constexpr int kGroups = kThreads / kCB;   // warps, each a pixel group
 
+template <typename TI, typename TO>
 __global__ void __launch_bounds__(kThreads)
-dw_tile(const float* __restrict__ x, const float* __restrict__ w,
-        float* __restrict__ out, int H, int W, int C, int kh, int kw, int sh,
+dw_tile(const TI* __restrict__ x, const TI* __restrict__ w,
+        TO* __restrict__ out, int H, int W, int C, int kh, int kw, int sh,
         int sw, int pt, int pl, int H_out, int W_out, int th, int tw,
         int n_tw) {
   extern __shared__ float smem[];
@@ -49,16 +54,16 @@ dw_tile(const float* __restrict__ x, const float* __restrict__ w,
   const int oh0 = (blockIdx.x / n_tw) * th, ow0 = (blockIdx.x % n_tw) * tw;
   const int ih0 = oh0 * sh - pt, iw0 = ow0 * sw - pl;
 
-  const float* xn = x + (long long)n * H * W * C;
+  const TI* xn = x + (long long)n * H * W * C;
   for (int pix = grp; pix < PH * PW; pix += kGroups) {
     const int ih = ih0 + pix / PW, iw = iw0 + pix % PW;
     float v = 0.f;
     if (live && ih >= 0 && ih < H && iw >= 0 && iw < W)
-      v = xn[((long long)ih * W + iw) * C + c];
+      v = widen(xn[((long long)ih * W + iw) * C + c]);
     patch[pix * kCB + lane] = v;
   }
   for (int t = grp; t < kh * kw; t += kGroups)
-    wt[t * kCB + lane] = live ? w[(long long)t * C + c] : 0.f;
+    wt[t * kCB + lane] = live ? widen(w[(long long)t * C + c]) : 0.f;
   __syncthreads();
   if (!live) return;  // no barrier follows
 
@@ -71,34 +76,47 @@ dw_tile(const float* __restrict__ x, const float* __restrict__ w,
       for (int dw = 0; dw < kw; ++dw)
         acc = __fadd_rn(acc, __fmul_rn(pp[(dh * PW + dw) * kCB],
                                        wt[(dh * kw + dw) * kCB + lane]));
-    out[(((long long)n * H_out + oh) * W_out + ow) * C + c] = acc;
+    out[(((long long)n * H_out + oh) * W_out + ow) * C + c] =
+        narrow<TO>(acc);
   }
 }
 
-}  // namespace
-
-// x (N, H, W, C), w (kh, kw, C), out (N, H_out, W_out, C), float32,
-// contiguous.  Padding is (pt, pl) at the top / left; the bottom and right
-// padding are implied by H_out / W_out.  The tile is th x tw output pixels.
-extern "C" int dwconv_f32(const float* x, const float* w, float* out, int N,
-                          int H, int W, int C, int kh, int kw, int sh, int sw,
-                          int pt, int pl, int H_out, int W_out, int th, int tw,
-                          cudaStream_t stream) {
-  if (th < 1 || tw < 1 || N < 1 || N > 65535 || C < 1 || H_out < 1 ||
-      W_out < 1 || kh < 1 || kw < 1 || sh < 1 || sw < 1)
-    return (int)cudaErrorInvalidValue;
+template <typename TI, typename TO>
+int run(const void* x, const void* w, void* out, int N, int H, int W, int C,
+        int kh, int kw, int sh, int sw, int pt, int pl, int H_out, int W_out,
+        int th, int tw, cudaStream_t stream) {
   const int PH = (th - 1) * sh + kh, PW = (tw - 1) * sw + kw;
   const size_t smem =
       sizeof(float) * ((size_t)PH * PW * kCB + (size_t)kh * kw * kCB);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dw_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        dw_tile<TI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int n_th = (H_out + th - 1) / th, n_tw = (W_out + tw - 1) / tw;
   const dim3 grid(n_th * n_tw, (C + kCB - 1) / kCB, N);
-  dw_tile<<<grid, kThreads, smem, stream>>>(x, w, out, H, W, C, kh, kw, sh,
-                                            sw, pt, pl, H_out, W_out, th, tw,
-                                            n_tw);
+  dw_tile<TI, TO><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TI*>(x), static_cast<const TI*>(w),
+      static_cast<TO*>(out), H, W, C, kh, kw, sh, sw, pt, pl, H_out, W_out,
+      th, tw, n_tw);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x (N, H, W, C), w (kh, kw, C) float32 (in_bf16 = 0) or bfloat16
+// (in_bf16 = 1), out (N, H_out, W_out, C) float32 or (out_bf16 = 1)
+// bfloat16, contiguous.  Padding is (pt, pl) at the top / left; the bottom
+// and right padding are implied by H_out / W_out.  The tile is th x tw
+// output pixels.
+extern "C" int dwconv(const void* x, const void* w, void* out, int N, int H,
+                      int W, int C, int kh, int kw, int sh, int sw, int pt,
+                      int pl, int H_out, int W_out, int th, int tw,
+                      int in_bf16, int out_bf16, cudaStream_t stream) {
+  if (th < 1 || tw < 1 || N < 1 || N > 65535 || C < 1 || H_out < 1 ||
+      W_out < 1 || kh < 1 || kw < 1 || sh < 1 || sw < 1)
+    return (int)cudaErrorInvalidValue;
+  return IO_DISPATCH(in_bf16, out_bf16, run, x, w, out, N, H, W, C, kh, kw,
+                     sh, sw, pt, pl, H_out, W_out, th, tw, stream);
 }

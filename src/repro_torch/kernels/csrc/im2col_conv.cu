@@ -1,5 +1,7 @@
-// Implicit-im2col float32 convolution, NHWC x HWIO -> NHWC, for Hopper
-// (sm_90a), on the CUDA cores.
+// Implicit-im2col convolution, NHWC x HWIO -> NHWC, for Hopper (sm_90a),
+// on the CUDA cores: float32 or bfloat16 input and filter (one dtype),
+// widened to float32 as they are stored in shared memory (exact), float32
+// sums, and a float32 or bfloat16 output rounded once at the end.
 //
 // Replaces: src/repro/kernels/im2col_conv.py::im2col_conv (pallas_call at
 // im2col_conv.py:117), the TPU kernel that keeps a row tile and its halo
@@ -32,15 +34,18 @@
 
 #include <cuda_runtime.h>
 
+#include "dtypes.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 16 pixel groups x 16 channel groups
 constexpr int kPix = 64;       // output pixels per CTA (th * tw)
 
-template <int TC>  // output channels per thread; BCO = 16 * TC
+// TC: output channels per thread, BCO = 16 * TC
+template <int TC, typename TI, typename TO>
 __global__ void __launch_bounds__(kThreads)
-conv_tile(const float* __restrict__ x, const float* __restrict__ w,
-          float* __restrict__ out, int H, int W, int C_in, int kh, int kw,
+conv_tile(const TI* __restrict__ x, const TI* __restrict__ w,
+          TO* __restrict__ out, int H, int W, int C_in, int kh, int kw,
           int C_out, int sh, int sw, int pt, int pl, int H_out, int W_out,
           int th, int tw, int ck, int n_tw) {
   constexpr int BCO = 16 * TC;
@@ -66,7 +71,7 @@ conv_tile(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
 
-  const float* xn = x + (long long)n * H * W * C_in;
+  const TI* xn = x + (long long)n * H * W * C_in;
   const int patch_len = PH * PW * ck;
   for (int c0 = 0; c0 < C_in; c0 += ck) {
     const int cc = min(ck, C_in - c0);
@@ -76,18 +81,18 @@ conv_tile(const float* __restrict__ x, const float* __restrict__ w,
       const int ih = ih0 + pix / PW, iw = iw0 + pix % PW;
       float v = 0.f;
       if (c < cc && ih >= 0 && ih < H && iw >= 0 && iw < W)
-        v = xn[((long long)ih * W + iw) * C_in + c0 + c];
+        v = widen(xn[((long long)ih * W + iw) * C_in + c0 + c]);
       patch[e] = v;
     }
     for (int dh = 0; dh < kh; ++dh) {
       for (int dw = 0; dw < kw; ++dw) {
         __syncthreads();  // patch stored; the previous tap's weights used
-        const float* wp =
+        const TI* wp =
             w + ((long long)(dh * kw + dw) * C_in + c0) * C_out + co0;
         for (int e = tid; e < ck * BCO; e += kThreads) {
           const int c = e / BCO, co = e % BCO;
           wtap[e] = (c < cc && co0 + co < C_out)
-                        ? wp[(long long)c * C_out + co] : 0.f;
+                        ? widen(wp[(long long)c * C_out + co]) : 0.f;
         }
         __syncthreads();
         const int toff = (dh * PW + dw) * ck;
@@ -112,17 +117,17 @@ conv_tile(const float* __restrict__ x, const float* __restrict__ w,
     const int p = tp + 16 * i;
     const int oh = oh0 + p / tw, ow = ow0 + p % tw;
     if (oh >= H_out || ow >= W_out) continue;
-    float* op = out + (((long long)n * H_out + oh) * W_out + ow) * C_out;
+    TO* op = out + (((long long)n * H_out + oh) * W_out + ow) * C_out;
 #pragma unroll
     for (int j = 0; j < TC; ++j) {
       const int co = co0 + tc + 16 * j;
-      if (co < C_out) op[co] = acc[i][j];
+      if (co < C_out) op[co] = narrow<TO>(acc[i][j]);
     }
   }
 }
 
-template <int TC>
-int launch(const float* x, const float* w, float* out, int N, int H, int W,
+template <int TC, typename TI, typename TO>
+int launch(const TI* x, const TI* w, TO* out, int N, int H, int W,
            int C_in, int kh, int kw, int C_out, int sh, int sw, int pt,
            int pl, int H_out, int W_out, int th, int tw, int ck,
            cudaStream_t stream) {
@@ -131,35 +136,49 @@ int launch(const float* x, const float* w, float* out, int N, int H, int W,
   const size_t smem = sizeof(float) * ((size_t)PH * PW * ck + (size_t)ck * BCO);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_tile<TC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv_tile<TC, TI, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const int n_th = (H_out + th - 1) / th, n_tw = (W_out + tw - 1) / tw;
   const dim3 grid(n_th * n_tw, (C_out + BCO - 1) / BCO, N);
-  conv_tile<TC><<<grid, kThreads, smem, stream>>>(
+  conv_tile<TC, TI, TO><<<grid, kThreads, smem, stream>>>(
       x, w, out, H, W, C_in, kh, kw, C_out, sh, sw, pt, pl, H_out, W_out,
       th, tw, ck, n_tw);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x (N, H, W, C_in), w (kh, kw, C_in, C_out), out (N, H_out, W_out, C_out),
-// float32, contiguous.  Padding is (pt, pl) at the top / left; the bottom
-// and right padding are implied by H_out / W_out.  th * tw must be 64 and
-// bco 32 or 64.
-extern "C" int im2col_conv_f32(const float* x, const float* w, float* out,
-                               int N, int H, int W, int C_in, int kh, int kw,
-                               int C_out, int sh, int sw, int pt, int pl,
-                               int H_out, int W_out, int th, int tw, int ck,
-                               int bco, cudaStream_t stream) {
-  if (th * tw != kPix || ck < 1 || N < 1 || N > 65535 ||
-      (bco != 32 && bco != 64))
-    return (int)cudaErrorInvalidValue;
+template <typename TI, typename TO>
+int run(const void* x_, const void* w_, void* out_, int N, int H, int W,
+        int C_in, int kh, int kw, int C_out, int sh, int sw, int pt, int pl,
+        int H_out, int W_out, int th, int tw, int ck, int bco,
+        cudaStream_t stream) {
+  const TI* x = static_cast<const TI*>(x_);
+  const TI* w = static_cast<const TI*>(w_);
+  TO* out = static_cast<TO*>(out_);
   if (bco == 64)
     return launch<4>(x, w, out, N, H, W, C_in, kh, kw, C_out, sh, sw, pt, pl,
                      H_out, W_out, th, tw, ck, stream);
   return launch<2>(x, w, out, N, H, W, C_in, kh, kw, C_out, sh, sw, pt, pl,
                    H_out, W_out, th, tw, ck, stream);
+}
+
+}  // namespace
+
+// x (N, H, W, C_in), w (kh, kw, C_in, C_out) float32 (in_bf16 = 0) or
+// bfloat16 (in_bf16 = 1), out (N, H_out, W_out, C_out) float32 or
+// (out_bf16 = 1) bfloat16, contiguous.  Padding is (pt, pl) at the top /
+// left; the bottom and right padding are implied by H_out / W_out.
+// th * tw must be 64 and bco 32 or 64.
+extern "C" int im2col_conv(const void* x, const void* w, void* out, int N,
+                           int H, int W, int C_in, int kh, int kw, int C_out,
+                           int sh, int sw, int pt, int pl, int H_out,
+                           int W_out, int th, int tw, int ck, int bco,
+                           int in_bf16, int out_bf16, cudaStream_t stream) {
+  if (th * tw != kPix || ck < 1 || N < 1 || N > 65535 ||
+      (bco != 32 && bco != 64))
+    return (int)cudaErrorInvalidValue;
+  return IO_DISPATCH(in_bf16, out_bf16, run, x, w, out, N, H, W, C_in, kh,
+                     kw, C_out, sh, sw, pt, pl, H_out, W_out, th, tw, ck, bco,
+                     stream);
 }

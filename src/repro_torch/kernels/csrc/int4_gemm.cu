@@ -1,6 +1,7 @@
 // Weight-only GeMM against a nibble-packed int4 weight, for Hopper
 // (sm_90a), on the CUDA cores: out (M, N) float32 = (a (M, K) @ w (K, N))
-// * scale[col], with a float32 and w stored two signed nibbles per byte
+// * scale[col], with a float32 or bfloat16 (widened at its shared-memory
+// store, exact) and w stored two signed nibbles per byte
 // along K: packed (ceil(K/2), N) int8, byte (kp, n) = (w[2kp+1][n] << 4) |
 // (w[2kp][n] & 0xF).  An odd K pads its last byte's high nibble with 0.
 //
@@ -29,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtypes.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 16 x 16
@@ -43,9 +46,9 @@ __device__ __forceinline__ float hi_nibble(int8_t b) {
   return (float)(b >> 4);
 }
 
-template <int BM, int BN>
+template <int BM, int BN, typename TA>
 __global__ void __launch_bounds__(kThreads)
-int4_gemm_tile(const float* __restrict__ a, const int8_t* __restrict__ w,
+int4_gemm_tile(const TA* __restrict__ a, const int8_t* __restrict__ w,
                const float* __restrict__ scale, float* __restrict__ out,
                int M, int K, int N, int nn) {
   constexpr int TM = BM / 16, TN = BN / 16;
@@ -64,7 +67,7 @@ int4_gemm_tile(const float* __restrict__ a, const int8_t* __restrict__ w,
     for (int e = tid; e < BM * kStep; e += kThreads) {
       const int r = e / kStep, c = e % kStep;
       const int m = m0 + r, k = k0 + c;
-      As[c][r] = (m < M && k < K) ? a[(long long)m * K + k] : 0.f;
+      As[c][r] = (m < M && k < K) ? widen(a[(long long)m * K + k]) : 0.f;
     }
     for (int e = tid; e < (kStep / 2) * BN; e += kThreads) {
       const int r = e / BN, c = e % BN;
@@ -107,26 +110,30 @@ int4_gemm_tile(const float* __restrict__ a, const int8_t* __restrict__ w,
 }
 
 template <int BM, int BN>
-void launch(const float* a, const int8_t* w, const float* scale, float* out,
-            int M, int K, int N, cudaStream_t stream) {
+void launch(const void* a, const int8_t* w, const float* scale, float* out,
+            int M, int K, int N, int a_bf16, cudaStream_t stream) {
   const int nm = (M + BM - 1) / BM, nn = (N + BN - 1) / BN;
-  int4_gemm_tile<BM, BN><<<nm * nn, kThreads, 0, stream>>>(
-      a, w, scale, out, M, K, N, nn);
+  if (a_bf16)
+    int4_gemm_tile<BM, BN, bf16><<<nm * nn, kThreads, 0, stream>>>(
+        static_cast<const bf16*>(a), w, scale, out, M, K, N, nn);
+  else
+    int4_gemm_tile<BM, BN, float><<<nm * nn, kThreads, 0, stream>>>(
+        static_cast<const float*>(a), w, scale, out, M, K, N, nn);
 }
 
 }  // namespace
 
-// a (M, K) float32, w (ceil(K/2), N) packed int8, scale (N,) float32,
-// out (M, N) float32, all contiguous.  (bm, bn) is the CTA's output tile,
-// each of 32, 64 or 128.
-extern "C" int int4_gemm(const float* a, const int8_t* w, const float* scale,
+// a (M, K) float32 or (a_bf16 = 1) bfloat16, w (ceil(K/2), N) packed int8,
+// scale (N,) float32, out (M, N) float32, all contiguous.  (bm, bn) is the
+// CTA's output tile, each of 32, 64 or 128.
+extern "C" int int4_gemm(const void* a, const int8_t* w, const float* scale,
                          float* out, int M, int K, int N, int bm, int bn,
-                         cudaStream_t stream) {
+                         int a_bf16, cudaStream_t stream) {
   if (M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
-#define INT4_TILE(BM_, BN_)                                   \
-  if (bm == BM_ && bn == BN_) {                               \
-    launch<BM_, BN_>(a, w, scale, out, M, K, N, stream);      \
-    return (int)cudaGetLastError();                           \
+#define INT4_TILE(BM_, BN_)                                       \
+  if (bm == BM_ && bn == BN_) {                                   \
+    launch<BM_, BN_>(a, w, scale, out, M, K, N, a_bf16, stream);  \
+    return (int)cudaGetLastError();                               \
   }
   INT4_TILE(32, 32) INT4_TILE(32, 64) INT4_TILE(32, 128)
   INT4_TILE(64, 32) INT4_TILE(64, 64) INT4_TILE(64, 128)

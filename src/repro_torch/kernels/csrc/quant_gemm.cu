@@ -2,8 +2,9 @@
 // the CUDA cores: out (M, N) float32 = (a (M, K) @ b (K, N)) * scale[col],
 // with b int8 and a either
 //   int8    (int32 accumulation, four products per __dp4a), or
-//   float32 (weight-only: each int8 weight is cast up after its load and
-//            the products accumulate in float32).
+//   float   (weight-only, float32 or bfloat16: each int8 weight, and a
+//            bfloat16 lhs, is cast up to float32 after its load -- exact --
+//            and the products accumulate in float32).
 //
 // Replaces: src/repro/kernels/quant_gemm.py::quant_gemm (pallas_call at
 // quant_gemm.py:106), the TPU kernel with an (M, N, K) grid, a VMEM
@@ -30,6 +31,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -103,9 +106,9 @@ qgemm_s8(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
   }
 }
 
-template <int BM, int BN>
+template <int BM, int BN, typename TA>
 __global__ void __launch_bounds__(kThreads)
-qgemm_wo(const float* __restrict__ a, const int8_t* __restrict__ b,
+qgemm_wo(const TA* __restrict__ a, const int8_t* __restrict__ b,
          const float* __restrict__ scale, float* __restrict__ out, int M,
          int K, int N, int nn) {
   constexpr int TM = BM / 16, TN = BN / 16;
@@ -123,7 +126,7 @@ qgemm_wo(const float* __restrict__ a, const int8_t* __restrict__ b,
     for (int e = tid; e < BM * kStepF; e += kThreads) {
       const int r = e / kStepF, c = e % kStepF;
       const int m = m0 + r, k = k0 + c;
-      As[c][r] = (m < M && k < K) ? a[(long long)m * K + k] : 0.f;
+      As[c][r] = (m < M && k < K) ? widen(a[(long long)m * K + k]) : 0.f;
     }
     for (int e = tid; e < kStepF * BN; e += kThreads) {
       const int r = e / BN, c = e % BN;
@@ -160,29 +163,33 @@ qgemm_wo(const float* __restrict__ a, const int8_t* __restrict__ b,
 
 template <int BM, int BN>
 void launch(const void* a, const int8_t* b, const float* scale, float* out,
-            int M, int K, int N, int a_int8, cudaStream_t stream) {
+            int M, int K, int N, int a_int8, int a_bf16,
+            cudaStream_t stream) {
   const int nm = (M + BM - 1) / BM, nn = (N + BN - 1) / BN;
   if (a_int8)
     qgemm_s8<BM, BN><<<nm * nn, kThreads, 0, stream>>>(
         static_cast<const int8_t*>(a), b, scale, out, M, K, N, nn);
+  else if (a_bf16)
+    qgemm_wo<BM, BN, bf16><<<nm * nn, kThreads, 0, stream>>>(
+        static_cast<const bf16*>(a), b, scale, out, M, K, N, nn);
   else
-    qgemm_wo<BM, BN><<<nm * nn, kThreads, 0, stream>>>(
+    qgemm_wo<BM, BN, float><<<nm * nn, kThreads, 0, stream>>>(
         static_cast<const float*>(a), b, scale, out, M, K, N, nn);
 }
 
 }  // namespace
 
-// a (M, K) int8 (a_int8 = 1) or float32 (a_int8 = 0), b (K, N) int8,
-// scale (N,) float32, out (M, N) float32, all contiguous.  (bm, bn) is the
-// CTA's output tile, each of 32, 64 or 128.
+// a (M, K) int8 (a_int8 = 1), float32 or bfloat16 (a_bf16 = 1), b (K, N)
+// int8, scale (N,) float32, out (M, N) float32, all contiguous.  (bm, bn)
+// is the CTA's output tile, each of 32, 64 or 128.
 extern "C" int quant_gemm(const void* a, const int8_t* b, const float* scale,
                           float* out, int M, int K, int N, int bm, int bn,
-                          int a_int8, cudaStream_t stream) {
+                          int a_int8, int a_bf16, cudaStream_t stream) {
   if (M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
-#define QGEMM_TILE(BM_, BN_)                                           \
-  if (bm == BM_ && bn == BN_) {                                        \
-    launch<BM_, BN_>(a, b, scale, out, M, K, N, a_int8, stream);       \
-    return (int)cudaGetLastError();                                    \
+#define QGEMM_TILE(BM_, BN_)                                                 \
+  if (bm == BM_ && bn == BN_) {                                              \
+    launch<BM_, BN_>(a, b, scale, out, M, K, N, a_int8, a_bf16, stream);     \
+    return (int)cudaGetLastError();                                          \
   }
   QGEMM_TILE(32, 32) QGEMM_TILE(32, 64) QGEMM_TILE(32, 128)
   QGEMM_TILE(64, 32) QGEMM_TILE(64, 64) QGEMM_TILE(64, 128)

@@ -1,6 +1,6 @@
 // Weight-only int8 GEMV, out (B, N) float32 = (x (B, K) @ w (K, N)) *
-// scale[col], x float32 with B <= 8, w int8, for Hopper (sm_90a), on the
-// CUDA cores.
+// scale[col], x float32 or bfloat16 (widened at the load, exact) with
+// B <= 8, w int8, for Hopper (sm_90a), on the CUDA cores.
 //
 // Replaces: src/repro/kernels/quant_gemm.py::wq_gemv (pallas_call at
 // quant_gemm.py:166), the TPU kernel that streams the int8 weight once
@@ -25,13 +25,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dtypes.cuh"
+#include "split_k.cuh"
+
 namespace {
 
 constexpr int kCols = 128;  // columns per CTA, one per thread
 constexpr int kMaxB = 8;
 
+struct wq_gemv_sum;  // names the split-K sum's instances in a profile
+
+template <typename TX>
 __global__ void __launch_bounds__(kCols)
-wq_gemv_partial(const float* __restrict__ x, const int8_t* __restrict__ w,
+wq_gemv_partial(const TX* __restrict__ x, const int8_t* __restrict__ w,
                 const float* __restrict__ scale, float* __restrict__ dst,
                 int B, int K, int N, int kc, int last) {
   extern __shared__ float xs[];  // (B, kc): this chunk of every x row
@@ -40,7 +46,7 @@ wq_gemv_partial(const float* __restrict__ x, const int8_t* __restrict__ w,
   const int len = min(K, k0 + kc) - k0;
   for (int i = threadIdx.x; i < B * len; i += blockDim.x) {
     const int b = i / len, k = i - b * len;
-    xs[b * kc + k] = x[(long long)b * K + k0 + k];
+    xs[b * kc + k] = widen(x[(long long)b * K + k0 + k]);
   }
   __syncthreads();
   if (n >= N) return;
@@ -64,36 +70,30 @@ wq_gemv_partial(const float* __restrict__ x, const int8_t* __restrict__ w,
     if (b < B) o[(long long)b * N + n] = last ? __fmul_rn(acc[b], s) : acc[b];
 }
 
-__global__ void wq_gemv_reduce(const float* __restrict__ partial,
-                               const float* __restrict__ scale,
-                               float* __restrict__ out, int N, int BN,
-                               int ksplit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= BN) return;
-  float s = 0.f;
-  for (int j = 0; j < ksplit; ++j) s += partial[(long long)j * BN + i];
-  out[i] = __fmul_rn(s, scale[i % N]);
-}
-
 }  // namespace
 
-// x (B, K) float32, w (K, N) int8, scale (N,) float32, out (B, N) float32,
-// partial (ksplit, B, N) float32 scratch (unused when ksplit == 1); all
-// contiguous, on the device of `stream`.
-extern "C" int wq_gemv(const float* x, const int8_t* w, const float* scale,
+// x (B, K) float32 or (x_bf16 = 1) bfloat16, w (K, N) int8, scale (N,)
+// float32, out (B, N) float32, partial (ksplit, B, N) float32 scratch
+// (unused when ksplit == 1); all contiguous, on the device of `stream`.
+extern "C" int wq_gemv(const void* x, const int8_t* w, const float* scale,
                        float* partial, float* out, int B, int K, int N,
-                       int kc, int ksplit, cudaStream_t stream) {
+                       int kc, int ksplit, int x_bf16, cudaStream_t stream) {
   if (B < 1 || B > kMaxB || kc < 1 || ksplit < 1 ||
       (long long)kc * ksplit < K)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((N + kCols - 1) / kCols, ksplit);
   const size_t smem = sizeof(float) * (size_t)B * kc;
-  wq_gemv_partial<<<grid, kCols, smem, stream>>>(
-      x, w, scale, ksplit == 1 ? out : partial, B, K, N, kc, ksplit == 1);
+  float* dst = ksplit == 1 ? out : partial;
+  if (x_bf16)
+    wq_gemv_partial<bf16><<<grid, kCols, smem, stream>>>(
+        static_cast<const bf16*>(x), w, scale, dst, B, K, N, kc, ksplit == 1);
+  else
+    wq_gemv_partial<float><<<grid, kCols, smem, stream>>>(
+        static_cast<const float*>(x), w, scale, dst, B, K, N, kc,
+        ksplit == 1);
   if (ksplit > 1) {
-    const int BN = B * N;
-    wq_gemv_reduce<<<(BN + 255) / 256, 256, 0, stream>>>(partial, scale, out,
-                                                         N, BN, ksplit);
+    launch_split_k_sum<wq_gemv_sum, float>(partial, scale, out, N,
+                                           (long long)B * N, ksplit, stream);
   }
   return (int)cudaGetLastError();
 }

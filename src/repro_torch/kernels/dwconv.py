@@ -6,6 +6,8 @@ Port of ``repro.kernels.dwconv.dwconv``, the paper's memory-bound showcase
 The kernel (``csrc/dwconv.cu``) loads each CTA's input patch and its halo
 once into shared memory, zero-filling the border itself (no padded copy
 of the input exists in device memory), 32 channels per CTA, one per lane.
+Input and filter are float32 or bfloat16 (one dtype), the output
+``out_dtype`` (default ``x.dtype``).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import hw
-from repro_torch.kernels import _build, check_operands, check_out_dtype, on_cpu
+from repro_torch.kernels import (_build, check_operands, check_out_dtype,
+                                 is_bf16, on_cpu)
 from repro_torch.kernels.im2col_conv import pixel_tile
 from repro_torch.kernels.ref import (conv_out_hw, normalize_padding,
                                      normalize_stride)
@@ -71,8 +74,8 @@ def dwconv_plain(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
 
 
 def _entry():
-    fn = _build.load("dwconv").dwconv_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 \
+    fn = _build.load("dwconv").dwconv
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -99,11 +102,12 @@ def dwconv(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
         return dwconv_plain(x, w, stride=(sh, sw),
                             padding=((pt, pb), (pl, pr)), out_dtype=out_dtype)
     dev = check_operands("dwconv", x, w)
-    check_out_dtype("dwconv", out_dtype)
+    out_dtype = check_out_dtype("dwconv", out_dtype, x.dtype)
     th, tw, _ = dw_tiling(kh, kw, (sh, sw))
-    out = torch.empty((N, H_out, W_out, C), dtype=torch.float32, device=dev)
+    out = torch.empty((N, H_out, W_out, C), dtype=out_dtype, device=dev)
     status = _entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C,
                       kh, kw, sh, sw, pt, pl, H_out, W_out, th, tw,
+                      is_bf16(x.dtype), is_bf16(out_dtype),
                       torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "dwconv")
     dwconv.launches += 1

@@ -2,7 +2,9 @@
 
 Port of ``repro.kernels.gemv.gemv``.  The kernel (``csrc/gemv.cu``) reads
 W once with coalesced loads and splits K across CTAs so that a narrow head
-still fills the card; see the note at the top of the source.
+still fills the card; see the note at the top of the source.  Operands
+are float32 or bfloat16 (one dtype), the output ``out_dtype`` (default
+``x.dtype``).
 """
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, check_operands, check_out_dtype, on_cpu
+from repro_torch.kernels import (_build, check_operands, check_out_dtype,
+                                 is_bf16, on_cpu, sm_count)
 from repro_torch.kernels.ref import gemv_ref as gemv_plain  # noqa: F401
 
 MAX_BATCH = 8
@@ -31,8 +34,8 @@ def split_k(K: int, N: int, sms: int, block_k: int) -> tuple[int, int]:
 
 
 def _entry():
-    fn = _build.load("gemv").gemv_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    fn = _build.load("gemv").gemv
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -60,20 +63,21 @@ def gemv(x: torch.Tensor, w: torch.Tensor, *, block_k: int = 512,
 
 def _launch(x, w, block_k, out_dtype):
     dev = check_operands("gemv", x, w)
-    check_out_dtype("gemv", out_dtype)
+    out_dtype = check_out_dtype("gemv", out_dtype, x.dtype)
     B, K = x.shape
     N = w.shape[1]
     if not 1 <= B <= MAX_BATCH:
         raise ValueError(f"gemv: batch {B} outside 1..{MAX_BATCH}")
     if block_k < 1:
         raise ValueError(f"gemv: block_k must be >= 1, got {block_k}")
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = sm_count(dev.index)
     kc, ksplit = split_k(K, N, sms, block_k)
-    out = torch.empty((B, N), dtype=torch.float32, device=dev)
+    out = torch.empty((B, N), dtype=out_dtype, device=dev)
     partial = torch.empty((ksplit if ksplit > 1 else 0, B, N),
                           dtype=torch.float32, device=dev)
     status = _entry()(x.data_ptr(), w.data_ptr(), partial.data_ptr(),
-                      out.data_ptr(), B, K, N, kc, ksplit,
+                      out.data_ptr(), B, K, N, kc, ksplit, is_bf16(x.dtype),
+                      is_bf16(out_dtype),
                       torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "gemv")
     gemv.launches += 1

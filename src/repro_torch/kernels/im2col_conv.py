@@ -5,7 +5,9 @@ Port of ``repro.kernels.im2col_conv.im2col_conv``, the paper's on-chip
 im2col: the im2col matrix is never materialized.  The kernel
 (``csrc/im2col_conv.cu``) loads each input patch once per channel chunk
 into shared memory, zero-filling the border itself (no padded copy of the
-input exists in device memory), and reuses it for all kh*kw taps.
+input exists in device memory), and reuses it for all kh*kw taps.  Input
+and filter are float32 or bfloat16 (one dtype), the output ``out_dtype``
+(default ``x.dtype``).
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import hw
-from repro_torch.kernels import _build, check_operands, check_out_dtype, on_cpu
+from repro_torch.kernels import (_build, check_operands, check_out_dtype,
+                                 is_bf16, on_cpu)
 from repro_torch.kernels.ref import (conv_out_hw, normalize_padding,
                                      normalize_stride)
 
@@ -88,8 +91,8 @@ def im2col_conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride=1,
 
 
 def _entry():
-    fn = _build.load("im2col_conv").im2col_conv_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 17 \
+    fn = _build.load("im2col_conv").im2col_conv
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 19 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -120,15 +123,15 @@ def im2col_conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
                                  padding=((pt, pb), (pl, pr)),
                                  out_dtype=out_dtype)
     dev = check_operands("im2col_conv", x, w)
-    check_out_dtype("im2col_conv", out_dtype)
+    out_dtype = check_out_dtype("im2col_conv", out_dtype, x.dtype)
     th, tw, ck, bco, _ = conv_tiling(
         C_in, kh, kw, (sh, sw), block_rows=block_rows,
         block_cout=block_cout, block_cin=block_cin)
-    out = torch.empty((N, H_out, W_out, C_out), dtype=torch.float32,
-                      device=dev)
+    out = torch.empty((N, H_out, W_out, C_out), dtype=out_dtype, device=dev)
     status = _entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W,
                       C_in, kh, kw, C_out, sh, sw, pt, pl, H_out, W_out, th,
-                      tw, ck, bco, torch.cuda.current_stream(dev).cuda_stream)
+                      tw, ck, bco, is_bf16(x.dtype), is_bf16(out_dtype),
+                      torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "im2col_conv")
     im2col_conv.launches += 1
     return out

@@ -27,10 +27,18 @@ def jax_alias(monkeypatch):
 @pytest.fixture
 def cuda_device():
     """The CUDA device, or a skip where there is none (decided here, at
-    run time, never at import)."""
+    run time, never at import).  TF32 is off for the test, so that the
+    references computed with cuBLAS or cuDNN on the card are float32, as
+    the kernels are (cuDNN's convolutions default to TF32)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
 
 
 def rand(seed: int, *shape: int) -> np.ndarray:

@@ -157,11 +157,11 @@ class TestTiling:
 
     def test_ctypes_signature_matches_the_source(self, monkeypatch):
         # ctypes passes what argtypes says: one entry per C parameter
-        lib = types.SimpleNamespace(dwconv_f32=types.SimpleNamespace())
+        lib = types.SimpleNamespace(dwconv=types.SimpleNamespace())
         monkeypatch.setattr(tdw._build, "load", lambda name: lib)
         fn = tdw._entry()
         src = (_build.CSRC / "dwconv.cu").read_text().split(
-            'extern "C" int dwconv_f32(')[1]
+            'extern "C" int dwconv(')[1]
         params = src.split(")")[0].split(",")
         assert len(fn.argtypes) == len(params)
         ptrs = sum("*" in p or "cudaStream_t" in p for p in params)

@@ -12,6 +12,8 @@ on CPU tensors.  Tolerances, each with its reason:
     reasons, the engine's greedy tokens and its policy: EQUAL.
   * fp8 einsums: the port's result EQUAL to ``fp8_gemm_plain`` of the
     port's own casts; against the reference rtol / atol 1e-5 * max|out|.
+  * a bfloat16 output: 1e-2 * max|out| -- one bfloat16 rounding of the
+    scaled f32 sum, which another summation order can move by one step.
 
 The ``cuda``-marked tests hold the CUDA kernel against its plain version
 on the card and skip here.
@@ -98,6 +100,31 @@ class TestKernel:
         assert got.shape == (M, N) and got.dtype == torch.float32
         _close(got, want)
 
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("lhs", ["e4m3", "bfloat16"])
+    def test_bf16_lhs_and_output_match_reference(self, lhs, out):
+        M, K, N, block = 9, 97, 129, (8, 32, 64)
+        a = rand(M + 3, M, K) * 4
+        bj, bt = _e4m3_pair(rand(K + 3, K, N) * 50)
+        s = np.random.default_rng(N + 3).uniform(1e-3, 2e-2, N).astype(
+            np.float32)
+        if lhs == "e4m3":
+            aj, at = _e4m3_pair(a)
+        else:
+            at = to_torch(a).bfloat16()
+            aj = jnp.asarray(at.float().numpy()).astype(jnp.bfloat16)
+        want = jqk.fp8_gemm(aj, bj, to_jax(s), block=block,
+                            out_dtype=getattr(jnp, out), interpret=True)
+        got = tqk.fp8_gemm(at, bt, to_torch(s), block=block,
+                           out_dtype=getattr(torch, out))
+        assert got.dtype == getattr(torch, out)
+        if out == "float32":
+            _close(got, want)
+        else:
+            w32 = np.asarray(want.astype(jnp.float32))
+            np.testing.assert_allclose(got.float().numpy(), w32, rtol=0,
+                                       atol=1e-2 * float(np.abs(w32).max()))
+
     def test_plain_version_is_the_upcast_product(self):
         _, a = _e4m3_pair(rand(1, 7, 19) * 30)
         _, b = _e4m3_pair(rand(2, 19, 11) * 30)
@@ -113,6 +140,36 @@ class TestKernel:
                          torch.ones(3))
         with pytest.raises(ValueError, match="scale"):
             tqk.fp8_gemm(a, quant.to_fp8(torch.zeros(8, 3)), torch.ones(4))
+
+
+# the split of the e4m3 tensor-core kernel at Yi-9B's projection shapes
+# (both widths) and at ragged ones
+SPLIT_SHAPES = [(M, K, N) for M in (1, 8, 9, 33, 128, 300)
+                for K, N in ((4096, 4096), (4096, 512), (4096, 11008),
+                             (11008, 4096), (4096, 64000), (97, 129))]
+
+
+class TestSplitK:
+    @pytest.mark.parametrize("M,K,N", SPLIT_SHAPES)
+    def test_chunks_cover_k_once_in_whole_stages(self, M, K, N):
+        bm, kc, ksplit = tqk.fp8_split_k(M, K, N, 132)
+        assert bm in tqk.FP8_TILE_ROWS and (bm >= M or bm == 128)
+        # chunk z covers K rows [z * kc, min(K, (z + 1) * kc)): every row
+        # once, no chunk empty
+        assert kc % tqk.FP8_STEP_K == 0
+        assert (ksplit - 1) * kc < K <= ksplit * kc
+        # the f32 partial planes (the wrapper's (ksplit, M, N) scratch)
+        # stay within eight times the e4m3 weight
+        assert ksplit == 1 or ksplit * M * N * 4 <= 8 * K * N
+
+    @pytest.mark.parametrize("M", [8, 128])
+    def test_grid_covers_the_card_at_n512(self, M):
+        bm, _, ksplit = tqk.fp8_split_k(M, 4096, 512, 132)
+        assert -(-M // bm) * (512 // tqk.FP8_TILE_N) * ksplit >= 132
+
+    def test_one_chunk_where_the_tiles_fill_the_card(self):
+        assert tqk.fp8_split_k(128, 4096, 64000, 132)[2] == 1
+        assert tqk.fp8_split_k(8, 4096, 64000, 132) == (16, 4096, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -358,3 +415,42 @@ class TestOnCard:
         want = tqk.fp8_gemm_plain(a, b, s)
         torch.testing.assert_close(got, want, rtol=TOL,
                                    atol=TOL * float(want.abs().max()))
+
+    # M = 1, 8, 128 and ragged M, K and N (byte loads); the head's width
+    @pytest.mark.parametrize("M,K,N", [
+        (1, 4096, 4096), (8, 4096, 512), (8, 11008, 4096), (128, 4096, 4096),
+        (128, 11008, 4096), (8, 4096, 64000), (3, 100, 70), (70, 1000, 129),
+        (130, 96, 48), (17, 4096, 520)])
+    def test_e4m3_tensor_core_path(self, cuda_device, M, K, N):
+        g = torch.Generator(device=cuda_device).manual_seed(M + K + N)
+        b = quant.to_fp8(torch.randn(K, N, generator=g, device=cuda_device)
+                         * 50)
+        a = quant.to_fp8(torch.randn(M, K, generator=g, device=cuda_device)
+                         * 4)
+        s = torch.rand(N, generator=g, device=cuda_device) + 0.1
+        n0 = tqk.fp8_gemm.launches
+        got = tqk.fp8_gemm(a, b, s)
+        assert tqk.fp8_gemm.launches == n0 + 1
+        want = tqk.fp8_gemm_plain(a, b, s)
+        torch.testing.assert_close(got, want, rtol=TOL,
+                                   atol=TOL * float(want.abs().max()))
+
+    @pytest.mark.parametrize("lhs", ["e4m3", "bfloat16"])
+    @pytest.mark.parametrize("M", [8, 128])
+    def test_bf16(self, cuda_device, M, lhs):
+        # a bfloat16 output from the epilogue (e4m3 lhs) or a bfloat16 lhs
+        # on the CUDA-core tile, both output dtypes
+        K, N = 4096, 512
+        g = torch.Generator(device=cuda_device).manual_seed(M)
+        b = quant.to_fp8(torch.randn(K, N, generator=g, device=cuda_device)
+                         * 50)
+        a = torch.randn(M, K, generator=g, device=cuda_device) * 4
+        a = quant.to_fp8(a) if lhs == "e4m3" else a.bfloat16()
+        s = torch.rand(N, generator=g, device=cuda_device) + 0.1
+        for out in (torch.float32, torch.bfloat16):
+            got = tqk.fp8_gemm(a, b, s, out_dtype=out)
+            want = tqk.fp8_gemm_plain(a, b, s, out_dtype=out)
+            assert got.dtype == out
+            tol = TOL if out == torch.float32 else 1e-2
+            assert float((got.float() - want.float()).abs().max()) <= \
+                tol * float(want.float().abs().max())

@@ -107,6 +107,38 @@ class TestInt4:
         assert got.shape == (B, N)
         _close_wo(got, want)
 
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("kernel", ["int4_gemm", "int4_gemv"])
+    def test_bf16_lhs_matches_reference(self, kernel, out):
+        # a bfloat16 lhs: the reference casts the unpacked weight to it
+        # (exact) and sums in f32, as the port widens the lhs; a bfloat16
+        # output is one rounding of the scaled f32 result (1e-2 * max|out|)
+        M, K, N = (9, 33, 70) if kernel == "int4_gemm" else (5, 97, 129)
+        _, packed_j, packed_t = _packed_pair(M + K + 1, K, N)
+        a = to_torch(rand(K + 2, M, K)).bfloat16()
+        aj = to_jax(a.float().numpy()).astype("bfloat16")
+        s = _scale(N + 2, N)
+        jdt, tdt = out, getattr(torch, out)
+        if kernel == "int4_gemm":
+            want = jqk.int4_gemm(aj, packed_j, to_jax(s), k_size=K,
+                                 block=(8, 16, 32), out_dtype=jdt,
+                                 interpret=True)
+            got = tqk.int4_gemm(a, packed_t, to_torch(s), k_size=K,
+                                out_dtype=tdt)
+        else:
+            want = jqk.int4_gemv(aj, packed_j, to_jax(s), k_size=K,
+                                 block_k=32, block_n=64, out_dtype=jdt,
+                                 interpret=True)
+            got = tqk.int4_gemv(a, packed_t, to_torch(s), k_size=K,
+                                block_k=32, out_dtype=tdt)
+        assert got.dtype == tdt and got.shape == (M, N)
+        if out == "float32":
+            _close_wo(got, want)
+        else:
+            want = np.asarray(want.astype("float32"))
+            np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                       atol=1e-2 * float(np.abs(want).max()))
+
     def test_plain_versions_agree_with_dequantized_product(self):
         q, _, packed_t = _packed_pair(3, 21, 17)
         a, s = to_torch(rand(4, 9, 21)), to_torch(_scale(5, 17))
@@ -281,6 +313,27 @@ class TestOnCard:
         want = tqk.int4_gemv_plain(x, w, s, k_size=K)
         torch.testing.assert_close(got, want, rtol=WO_TOL,
                                    atol=WO_TOL * float(want.abs().max()))
+
+    @pytest.mark.parametrize("M", [1, 8, 128])
+    def test_int4_bf16(self, cuda_device, M):
+        # a bfloat16 lhs (int4_gemv at or below 8 rows, int4_gemm above)
+        # and both output dtypes
+        K, N = 4096, 512
+        g = torch.Generator(device=cuda_device).manual_seed(M)
+        q = torch.randint(-8, 8, (K, N), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        w = tqt.pack_int4(q, axis=0).contiguous()
+        a = torch.randn(M, K, generator=g, device=cuda_device).bfloat16()
+        s = torch.rand(N, generator=g, device=cuda_device) + 0.1
+        fn, plain = ((tqk.int4_gemv, tqk.int4_gemv_plain) if M <= 8
+                     else (tqk.int4_gemm, tqk.int4_gemm_plain))
+        for out in (torch.float32, torch.bfloat16):
+            got = fn(a, w, s, k_size=K, out_dtype=out)
+            want = plain(a, w, s, k_size=K, out_dtype=out)
+            assert got.dtype == out
+            tol = WO_TOL if out == torch.float32 else 1e-2
+            assert float((got.float() - want.float()).abs().max()) <= \
+                tol * float(want.float().abs().max())
 
     @pytest.mark.parametrize("T", [1, 16, 130])
     def test_int8_attention(self, cuda_device, T):

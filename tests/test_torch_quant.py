@@ -243,6 +243,42 @@ class TestKernels:
         got = tqk.wq_gemv(to_torch(x), to_torch(w), to_torch(s), block_k=32)
         _close_weight_only(got, want)
 
+    @pytest.mark.parametrize("out", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("kernel", ["quant_gemm", "wq_gemv"])
+    def test_weight_only_bf16_lhs_matches_reference(self, kernel, out):
+        # a bfloat16 lhs: the weight cast to it (int8 is exact in bfloat16)
+        # and f32 accumulation on both sides; a bfloat16 output is one
+        # rounding of the scaled f32 result (1e-2 * max|out|)
+        a = to_torch(rand(22, 6, 100)).bfloat16()
+        aj = jnp.asarray(a.float().numpy()).astype(jnp.bfloat16)
+        b, s = _i8(23, 100, 70), _scale(24, 70)
+        jdt, tdt = getattr(jnp, out), getattr(torch, out)
+        if kernel == "quant_gemm":
+            want = jqk.quant_gemm(aj, to_jax(b), to_jax(s), block=(8, 16, 16),
+                                  out_dtype=jdt, interpret=True)
+            got = tqk.quant_gemm(a, to_torch(b), to_torch(s), out_dtype=tdt)
+        else:
+            want = jqk.wq_gemv(aj, to_jax(b), to_jax(s), block_k=32,
+                               block_n=64, out_dtype=jdt, interpret=True)
+            got = tqk.wq_gemv(a, to_torch(b), to_torch(s), block_k=32,
+                              out_dtype=tdt)
+        assert got.dtype == tdt
+        if out == "float32":
+            _close_weight_only(got, want)
+        else:
+            _close_logits(got.float(), np.asarray(want, np.float32), 1e-2)
+
+    def test_int8_conv_takes_a_bf16_output(self):
+        x, w, s = _i8(25, 1, 6, 6, 8), _i8(26, 3, 3, 8, 4), _scale(27, 4)
+        want = jqk.quant_im2col_conv(to_jax(x), to_jax(w), to_jax(s),
+                                     padding=1, out_dtype=jnp.bfloat16,
+                                     block_rows=4, block_cout=8, block_cin=4,
+                                     interpret=True)
+        got = tqk.quant_im2col_conv(to_torch(x), to_torch(w), to_torch(s),
+                                    padding=1, out_dtype=torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        _equal(got.float(), np.asarray(want, np.float32))
+
     @pytest.mark.parametrize("case", QCONV_CASES,
                              ids=[f"c{i}" for i in range(len(QCONV_CASES))])
     def test_quant_im2col_conv_equals_reference(self, case):
@@ -804,6 +840,37 @@ class TestOnCard:
         torch.testing.assert_close(tqk.wq_gemv(x, w, s),
                                    tqk.wq_gemv_plain(x, w, s),
                                    rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("m", [1, 8, 32])
+    def test_weight_only_bf16(self, cuda_device, m):
+        # a bfloat16 lhs (quant_gemm above 8 rows, wq_gemv at or below) and
+        # a bfloat16 output cast once from the f32 result
+        a = torch.randn(m, 2048, device=cuda_device).bfloat16()
+        b = torch.randint(-127, 128, (2048, 1000), dtype=torch.int8,
+                          device=cuda_device)
+        s = torch.rand(1000, device=cuda_device) * 1e-2
+        fn, plain = ((tqk.wq_gemv, tqk.wq_gemv_plain) if m <= 8
+                     else (tqk.quant_gemm, tqk.quant_gemm_plain))
+        for out in (torch.float32, torch.bfloat16):
+            n0 = fn.launches
+            got = fn(a, b, s, out_dtype=out)
+            assert fn.launches == n0 + 1 and got.dtype == out
+            want = plain(a, b, s, out_dtype=out)
+            tol = 1e-4 if out == torch.float32 else 1e-2
+            assert float((got.float() - want.float()).abs().max()) <= \
+                tol * float(want.float().abs().max())
+
+    def test_quant_im2col_conv_bf16_output(self, cuda_device):
+        x = torch.randint(-127, 128, (2, 14, 14, 64), dtype=torch.int8,
+                          device=cuda_device)
+        w = torch.randint(-127, 128, (3, 3, 64, 64), dtype=torch.int8,
+                          device=cuda_device)
+        s = torch.rand(64, device=cuda_device) * 1e-2
+        got = tqk.quant_im2col_conv(x, w, s, padding=1,
+                                    out_dtype=torch.bfloat16)
+        want = tqk.quant_im2col_conv_plain(x, w, s, padding=1,
+                                           out_dtype=torch.bfloat16)
+        assert torch.equal(got, want)
 
     @pytest.mark.parametrize("case", QCONV_CASES,
                              ids=[f"c{i}" for i in range(len(QCONV_CASES))])

@@ -11,6 +11,9 @@ CPU tensors.  Tolerances, each with its reason:
   * ``zero_gate_gemm``: rtol / atol 2e-5 (``_torch_parity.assert_close``)
     -- f32 sums in another order.
   * step logits: 1e-4 * max|logit|, the float steps' tolerance.
+  * bfloat16 operands or output: 1e-2 * max|out| -- the products are exact
+    in f32, but another summation order can move a value across one
+    bfloat16 rounding step (2^-8 relative).
 
 The ``cuda``-marked tests hold the CUDA kernel against its plain version
 on the card and skip here.
@@ -38,6 +41,7 @@ from repro_torch.models import transformer as T
 pytestmark = pytest.mark.usefixtures("jax_alias")
 
 FLOAT_LOGIT_TOL = 1e-4
+BF16_TOL = 1e-2
 
 
 def _sparse(seed: int, M: int, K: int, bm: int, bk: int) -> np.ndarray:
@@ -125,11 +129,107 @@ class TestMaskAndKernel:
         assert torch.equal(
             tzg.zero_gate_gemm_plain(a, b, bm=4, bk=8, mask=mask), acc)
 
+    @pytest.mark.parametrize("out", ["bfloat16", "float32"])
+    @pytest.mark.parametrize("M,K,N,block", [CASES[0], CASES[3], CASES[4]],
+                             ids=["ragged", "big", "M8"])
+    def test_bf16_matches_reference(self, M, K, N, block, out):
+        bm, bk, _ = block
+        a = to_torch(_sparse(M + K + 2, M, K, bm, bk)).bfloat16()
+        b = to_torch(rand(K + N + 2, K, N)).bfloat16()
+        aj, bj = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                  for t in (a, b))
+        want = jzg.zero_gate_gemm(aj, bj, block=block,
+                                  out_dtype=getattr(jnp, out),
+                                  interpret=True)
+        got = tzg.zero_gate_gemm(a, b, block=block,
+                                 out_dtype=getattr(torch, out))
+        assert got.dtype == getattr(torch, out)
+        w32 = np.asarray(want.astype(jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), w32, rtol=0,
+                                   atol=BF16_TOL * float(np.abs(w32).max()))
+        # the default output is the operands' dtype
+        assert tzg.zero_gate_gemm(a, b, block=block).dtype == torch.bfloat16
+
     def test_rejects_bad_mask(self):
         with pytest.raises(ValueError, match="mask"):
             tzg.zero_gate_gemm(torch.zeros(8, 16), torch.zeros(16, 4),
                                block=(4, 8, 4),
                                mask=torch.ones(2, 3, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's K split
+# ---------------------------------------------------------------------------
+
+
+def _chunks(K: int, bk: int, kc: int, sub: int, bpc: int, chunks: int):
+    """The K rows [k0, kend) of each chunk, as the kernel's Chunk sees
+    them."""
+    out = []
+    for c in range(chunks):
+        l0 = (c // sub) * bpc
+        k0 = l0 * bk + (c % sub) * kc
+        span = kc if sub > 1 else bpc * bk
+        out.append((k0, min(k0 + span, (l0 + bpc) * bk, K)))
+    return out
+
+
+# (M, K, N, mask bk, itemsize): Yi-9B's projections at both widths with
+# the mapper's (bk = 4096) and the sparse check's (256) blocks, in f32 and
+# bf16, and ragged ones
+SPLIT_CASES = [(M, K, N, bk, isz) for M in (1, 8, 128) for K, N in
+               ((4096, 4096), (4096, 512), (11008, 4096), (4096, 64000))
+               for bk in (4096, 256) for isz in (4, 2)] + [
+    (9, 33, 70, 8, 4), (33, 97, 129, 32, 4), (8, 300, 40, 128, 2),
+    (130, 5000, 48, 1000, 4)]
+
+
+class TestSplitK:
+    @pytest.mark.parametrize("M,K,N,bk,isz", SPLIT_CASES)
+    def test_chunks_cover_k_once_inside_mask_blocks(self, M, K, N, bk, isz):
+        tile_m, kc, sub, bpc, chunks = tzg.zg_split_k(M, K, N, bk, isz, 132)
+        bk = min(bk, K)
+        assert sub == 1 or bpc == 1
+        rows = [r for r in _chunks(K, bk, kc, sub, bpc, chunks)
+                if r[0] < r[1]]
+        # in order, every row once
+        assert rows[0][0] == 0 and rows[-1][1] == K
+        assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+        for k0, kend in rows:
+            # a run of whole blocks, or a piece of one block
+            whole = k0 % bk == 0 and (kend % bk == 0 or kend == K)
+            assert whole or k0 // bk == (kend - 1) // bk
+        # pieces of a block are whole steps of the form, or the block
+        step = tzg.STREAM_STEP if M <= tzg.STREAM_ROWS else tzg.TILE_STEP
+        assert sub == 1 or kc % step == 0 or kc == bk
+        # the (chunks, M, N) f32 scratch stays within eight times b
+        assert chunks == 1 or chunks * M * N * 4 <= 8 * K * N * isz
+        # the smallest tile that covers M (the streaming form: M itself)
+        if M <= tzg.STREAM_ROWS:
+            assert tile_m == M
+        else:
+            assert tile_m in tzg.TILE_ROWS and tile_m >= min(M, 128)
+            assert tile_m == 32 or tile_m // 2 < M
+
+    @pytest.mark.parametrize("M", [1, 8, 128])
+    @pytest.mark.parametrize("isz", [4, 2])
+    def test_grid_covers_the_card_at_n512(self, M, isz):
+        tile_m, _, _, _, chunks = tzg.zg_split_k(M, 4096, 512, 4096, isz,
+                                                 132)
+        if M <= tzg.STREAM_ROWS:
+            cols = tzg.STREAM_THREADS * (16 // isz)
+            ctas = -(-512 // cols) * chunks
+        else:
+            ctas = -(-M // tile_m) * (512 // tzg.TILE_N) * chunks
+        assert ctas >= 132
+
+    def test_ragged_last_block_leaves_empty_chunks(self):
+        # K = 11008 in blocks of 4096: the last block has 2816 rows, so its
+        # last pieces are empty -- the kernel writes their planes as zeros
+        _, kc, sub, bpc, chunks = tzg.zg_split_k(8, 11008, 4096, 4096, 4, 132)
+        rows = _chunks(11008, 4096, kc, sub, bpc, chunks)
+        assert any(k0 >= kend for k0, kend in rows)
+        assert chunks == 3 * sub and bpc == 1
 
 
 # ---------------------------------------------------------------------------
@@ -257,3 +357,75 @@ class TestOnCard:
                                         mask=mask)
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-5 * float(want.abs().max()))
+
+    # M = 1, 8 (the streaming form), 128 (the tile), ragged M, K and N
+    # (element loads), a mask block finer than the tile, K = 11008 (a
+    # ragged last K block)
+    @pytest.mark.parametrize("M,K,N,block", [
+        (1, 4096, 4096, (1, 4096, 128)), (8, 11008, 4096, (8, 4096, 128)),
+        (8, 4096, 512, (4, 256, 128)), (128, 11008, 512, (128, 4096, 128)),
+        (128, 4096, 64000, (128, 4096, 128)), (5, 99, 70, (2, 16, 32)),
+        (70, 1001, 130, (16, 100, 64)), (129, 96, 33, (64, 32, 16))])
+    def test_split_k_forms(self, cuda_device, M, K, N, block):
+        bm, bk, _ = block
+        a = to_torch(_sparse(M + 1, M, K, bm, bk)).to(cuda_device)
+        b = torch.randn(K, N, device=cuda_device)
+        n0 = tzg.zero_gate_gemm.launches
+        got = tzg.zero_gate_gemm(a, b, block=block)
+        assert tzg.zero_gate_gemm.launches == n0 + 1
+        want = tzg.zero_gate_gemm_plain(a, b, bm=bm, bk=bk,
+                                        mask=tzg.block_mask(a, bm, bk))
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+    @pytest.mark.parametrize("M", [8, 128])
+    def test_dead_k_chunk_leaves_zeros(self, cuda_device, M):
+        # a mask whose whole middle K block is dead for every row block:
+        # its chunks' partial planes (scratch from torch.empty) must hold
+        # zeros, or garbage is summed; A is NOT zero there, so only the
+        # mask gates it
+        K, N, bm, bk = 4096 * 3, 4096, min(M, 32), 4096
+        a = torch.randn(M, K, device=cuda_device)
+        b = torch.randn(K, N, device=cuda_device)
+        mask = torch.ones(-(-M // bm), 3, dtype=torch.int32,
+                          device=cuda_device)
+        mask[:, 1] = 0
+        for _ in range(2):      # the second call reuses dirty scratch
+            torch.empty(64 << 20, device=cuda_device).fill_(float("nan"))
+            got = tzg.zero_gate_gemm(a, b, block=(bm, bk, 128), mask=mask)
+        want = tzg.zero_gate_gemm_plain(a, b, bm=bm, bk=bk, mask=mask)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+    @pytest.mark.parametrize("M", [8, 128])
+    def test_mask_gates_live_blocks(self, cuda_device, M):
+        # half of a dense A's (bm, 256) blocks gated off by the mask
+        K, N, bm, bk = 4096, 512, min(M, 32), 256
+        a = torch.randn(M, K, device=cuda_device)
+        b = torch.randn(K, N, device=cuda_device)
+        g = torch.Generator(device=cuda_device).manual_seed(M)
+        mask = torch.randint(0, 2, (-(-M // bm), K // bk), generator=g,
+                             device=cuda_device, dtype=torch.int32)
+        got = tzg.zero_gate_gemm(a, b, block=(bm, bk, 128), mask=mask)
+        want = tzg.zero_gate_gemm_plain(a, b, bm=bm, bk=bk, mask=mask)
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+        assert float((got - a @ b).abs().max()) > 1.0
+
+    @pytest.mark.parametrize("M", [8, 128])
+    def test_bf16(self, cuda_device, M):
+        K, N = 4096, 4096
+        a = to_torch(_sparse(M, M, K, min(M, 32), 256)).to(
+            cuda_device).bfloat16()
+        b = torch.randn(K, N, device=cuda_device).bfloat16()
+        mask = tzg.block_mask(a, min(M, 32), 256)
+        for out in (torch.bfloat16, torch.float32):
+            got = tzg.zero_gate_gemm(a, b, block=(32, 256, 128), mask=mask,
+                                     out_dtype=out)
+            want = tzg.zero_gate_gemm_plain(a, b, bm=min(M, 32), bk=256,
+                                            mask=mask, out_dtype=out)
+            assert got.dtype == out
+            tol = 1e-5 if out == torch.float32 else BF16_TOL
+            assert float((got.float() - want.float()).abs().max()) <= \
+                tol * float(want.float().abs().max())
