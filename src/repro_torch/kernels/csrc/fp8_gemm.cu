@@ -51,6 +51,8 @@
 //     zero-filled loads, which costs products but no HBM bytes.
 //   Ragged K or N, or an operand not 16-byte aligned, take the same
 //   pipeline with byte loads (synchronous) instead of cp.async.
+//   The CTA tile, the ldmatrix / mma.sync helpers, the stage ring and the
+//   epilogue are mma.cuh's, shared with quant_gemm.cu and int4_gemm.cu.
 //
 // The weight-only form (float32 or bfloat16 lhs), which no model path
 // takes, stays on the CUDA-core OS tile: each e4m3 byte decoded to float32
@@ -63,6 +65,7 @@
 
 #include "cp_async.cuh"
 #include "dtypes.cuh"
+#include "mma.cuh"
 #include "split_k.cuh"
 
 namespace {
@@ -70,53 +73,19 @@ namespace {
 struct fp8_gemm_sum;  // names the split-K sum's instances in a profile
 
 // ---------------------------------------------------------------------------
-// e4m3 x e4m3 on the tensor cores
+// e4m3 x e4m3 on the tensor cores (the CTA tile and kBK: mma.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kTcThreads = 256;   // 8 warps
-constexpr int kBN = 128;          // output columns per CTA
-constexpr int kBK = 64;           // K depth of one stage (bytes per A row)
 constexpr int kStages = 4;
 constexpr int kAS = kBK + 8;      // fp16 row stride of the A tile (144 B)
 constexpr int kBS = kBN + 8;      // fp16 row stride of the B tile (272 B)
 
 template <int BM>
-struct Tc {
-  static constexpr int WM = BM >= 64 ? 2 : 1;   // warps along M
-  static constexpr int WN = 8 / WM;             // warps along N
-  static constexpr int WTM = BM / WM;           // a warp's rows
-  static constexpr int WTN = kBN / WN;          // a warp's columns
-  static constexpr int MT = WTM / 16;           // m16 tiles per warp
-  static constexpr int NT = WTN / 8;            // n8 tiles per warp (even)
+struct Tc : WarpTiles<BM> {
   static constexpr int kStageBytes = BM * kBK + kBK * kBN;
   static constexpr int kSmem =
       kStages * kStageBytes + 2 * (BM * kAS + kBK * kBS);
 };
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row) @ b (16 x 8, col), fp16 in, f32 accumulator
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // two e4m3 bytes (the low one first) -> their fp16 pair, exactly
 __device__ __forceinline__ unsigned e4m3x2_f16x2(unsigned pair) {
@@ -204,26 +173,13 @@ fp8_tc(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
 
   auto stage_a = [&](int s) { return smem + s * C::kStageBytes; };
   auto stage_b = [&](int s) { return smem + s * C::kStageBytes + BM * kBK; };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nt)
-      load_stage<BM, VEC>(stage_a(s), stage_b(s), a, b, M, K, N, m0, n0,
-                          k0 + s * kBK, kend);
-    cp_async_commit();
-  }
-
-  for (int t = 0; t < nt; ++t) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage t landed; stage t - 1 and the fp16 tiles free
-    const int next = t + kStages - 1;
-    if (next < nt)
-      load_stage<BM, VEC>(stage_a(next % kStages), stage_b(next % kStages),
-                          a, b, M, K, N, m0, n0, k0 + next * kBK, kend);
-    cp_async_commit();
-
-    const uint8_t* a8 = stage_a(t % kStages);
-    const uint8_t* b8 = stage_b(t % kStages);
+  auto load = [&](int s, int t) {
+    load_stage<BM, VEC>(stage_a(s), stage_b(s), a, b, M, K, N, m0, n0,
+                        k0 + t * kBK, kend);
+  };
+  auto compute = [&](int s) {
+    const uint8_t* a8 = stage_a(s);
+    const uint8_t* b8 = stage_b(s);
     for (int c = tid; c < BM * (kBK / 16); c += kTcThreads) {
       const int r = c / (kBK / 16), q = c % (kBK / 16);
       decode16(a8 + r * kBK + 16 * q, A16 + r * kAS + 16 * q);
@@ -260,30 +216,9 @@ fp8_tc(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
         for (int j = 0; j < C::NT; ++j)
           mma16816(acc[i][j], af[i], bf[j][0], bf[j][1]);
     }
-  }
-  cp_async_wait<0>();
-
-  // pairs of neighbouring columns: one 8-byte store (f32) per pair
-  const bool whole = gridDim.z == 1, vec = N % 2 == 0;
-  float* plane = static_cast<float*>(dst) + (long long)blockIdx.z * M * N;
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm * C::WTM + 16 * i + lane / 4 + 8 * h;
-        const int n = n0 + wn * C::WTN + 8 * j + 2 * (lane % 4);
-        if (m >= M || n >= N) continue;
-        const long long o = (long long)m * N + n;
-        const bool two = n + 1 < N;
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (whole)
-          store2(static_cast<TO*>(dst) + o, __fmul_rn(v0, scale[n]),
-                 two ? __fmul_rn(v1, scale[n + 1]) : 0.f, two, vec);
-        else
-          store2(plane + o, v0, v1, two, vec);
-      }
+  };
+  stage_ring<kStages>(nt, load, compute);
+  store_acc<TO>(acc, scale, dst, M, N, m0 + wm * C::WTM, n0 + wn * C::WTN);
 }
 
 template <int BM, bool VEC, typename TO>
@@ -316,21 +251,11 @@ template <bool VEC, typename TO>
 int run_tc(const uint8_t* a, const uint8_t* b, const float* scale,
            float* partial, void* out, int M, int K, int N, int bm, int kc,
            int ksplit, cudaStream_t stream) {
-  switch (bm) {
-    case 16:
-      return launch_tc<16, VEC, TO>(a, b, scale, partial, out, M, K, N, kc,
-                                    ksplit, stream);
-    case 32:
-      return launch_tc<32, VEC, TO>(a, b, scale, partial, out, M, K, N, kc,
-                                    ksplit, stream);
-    case 64:
-      return launch_tc<64, VEC, TO>(a, b, scale, partial, out, M, K, N, kc,
-                                    ksplit, stream);
-    case 128:
-      return launch_tc<128, VEC, TO>(a, b, scale, partial, out, M, K, N, kc,
-                                     ksplit, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  return with_bm(bm, [&](auto BM) {
+    return launch_tc<decltype(BM)::value, VEC, TO>(a, b, scale, partial, out,
+                                                   M, K, N, kc, ksplit,
+                                                   stream);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -438,8 +363,7 @@ extern "C" int fp8_gemm(const void* a, const uint8_t* b, const float* scale,
   if (M < 1 || K < 1 || N < 1 || a_kind < 0 || a_kind > 2)
     return (int)cudaErrorInvalidValue;
   if (a_kind == 2) {
-    if (kc < 1 || ksplit < 1 || ksplit > 65535 || M > 65535 * 128 ||
-        (long long)kc * ksplit < K || (ksplit > 1 && kc % kBK))
+    if (!tc_grid_ok(M, K, N, bm, kc, ksplit))
       return (int)cudaErrorInvalidValue;
     const uint8_t* a8 = static_cast<const uint8_t*>(a);
     const bool vec = K % 16 == 0 && N % 16 == 0 &&
@@ -459,7 +383,7 @@ extern "C" int fp8_gemm(const void* a, const uint8_t* b, const float* scale,
                      K, N, bm, bn, stream);
 }
 
-// The constants the wrapper's planner (quant_gemm.py: fp8_split_k) sizes
+// The constants the wrapper's planner (quant_gemm.py: tc_split_k) sizes
 // its grid by, for it to check once at load: tile columns, stage depth.
 extern "C" void fp8_gemm_tiles(int* t) {
   t[0] = kBN;

@@ -1,18 +1,43 @@
-// The second pass of every split-K kernel: out = (the sum of the float32
-// partial planes, in plane order) * scale[col] where a column scale is
-// given, rounded once to the output type.  The order is fixed and there
-// are no atomics, so the result is deterministic.
+// The second pass of every split-K kernel: out = (the sum of the partial
+// planes, in plane order) * scale[col] where a column scale is given,
+// rounded once to the output type.  The order is fixed and there are no
+// atomics, so the result is deterministic.  Planes are float32, or int32
+// (the int8 GeMM's), which are summed in int32 -- exactly -- and cast to
+// float32 once before the scale, as the reference's epilogue
+// acc.astype(f32) * scale.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "dtypes.cuh"
 
-// partial (planes, M, N) float32, MN = M * N, scale (N,) float32 or null;
-// two neighbouring outputs a thread.  Tag is an empty type named after
-// the calling kernel, so that a profile puts each instance in its group.
-template <typename Tag, typename TO>
-__global__ void split_k_sum(const float* __restrict__ partial,
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(int x) { return __int2float_rn(x); }
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ int2 load2(const int* p) {
+  return *reinterpret_cast<const int2*>(p);
+}
+
+// an int32 plane's pair, as store2 in dtypes.cuh
+__device__ __forceinline__ void store2(int* out, int a, int b, bool two,
+                                       bool vec) {
+  if (two && vec) {
+    *reinterpret_cast<int2*>(out) = make_int2(a, b);
+  } else {
+    out[0] = a;
+    if (two) out[1] = b;
+  }
+}
+
+// partial (planes, M, N) of TP (float or int), MN = M * N, scale (N,)
+// float32 or null; two neighbouring outputs a thread.  Tag is an empty
+// type named after the calling kernel, so that a profile puts each
+// instance in its group.
+template <typename Tag, typename TO, typename TP>
+__global__ void split_k_sum(const TP* __restrict__ partial,
                             const float* __restrict__ scale,
                             TO* __restrict__ out, int N, long long MN,
                             int planes) {
@@ -20,12 +45,12 @@ __global__ void split_k_sum(const float* __restrict__ partial,
       2 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
   if (i >= MN) return;
   const bool two = i + 1 < MN, vec = MN % 2 == 0;
-  float s0 = 0.f, s1 = 0.f;
+  TP s0 = 0, s1 = 0;
 #pragma unroll 4
   for (int j = 0; j < planes; ++j) {  // loads overlap; sums in plane order
-    const float* p = partial + (long long)j * MN + i;
+    const TP* p = partial + (long long)j * MN + i;
     if (vec) {
-      const float2 v = *reinterpret_cast<const float2*>(p);
+      const auto v = load2(p);
       s0 += v.x;
       s1 += v.y;
     } else {
@@ -33,17 +58,18 @@ __global__ void split_k_sum(const float* __restrict__ partial,
       if (two) s1 += p[1];
     }
   }
+  float f0 = to_f32(s0), f1 = to_f32(s1);
   if (scale != nullptr) {
-    s0 = __fmul_rn(s0, scale[i % N]);
-    if (two) s1 = __fmul_rn(s1, scale[(i + 1) % N]);
+    f0 = __fmul_rn(f0, scale[i % N]);
+    if (two) f1 = __fmul_rn(f1, scale[(i + 1) % N]);
   }
-  store2(out + i, s0, s1, two, vec);
+  store2(out + i, f0, f1, two, vec);
 }
 
-template <typename Tag, typename TO>
-void launch_split_k_sum(const float* partial, const float* scale, TO* out,
+template <typename Tag, typename TO, typename TP>
+void launch_split_k_sum(const TP* partial, const float* scale, TO* out,
                         int N, long long MN, int planes,
                         cudaStream_t stream) {
-  split_k_sum<Tag, TO><<<(unsigned)((MN + 511) / 512), 256, 0, stream>>>(
-      partial, scale, out, N, MN, planes);
+  split_k_sum<Tag, TO, TP><<<(unsigned)((MN + 511) / 512), 256, 0,
+                             stream>>>(partial, scale, out, N, MN, planes);
 }

@@ -3,23 +3,24 @@ plain versions.
 
 Port of the six kernels of ``repro.kernels.quant_gemm``:
 
-  * ``quant_gemm``       : ``(M, K) int8 x (K, N) int8 -> float32`` with
-                           int32 accumulation, or the weight-only form
-                           (float lhs, int8 weight cast up after its
-                           load, float32 accumulation) -- ``csrc/quant_gemm.cu``.
+  * ``quant_gemm``       : ``(M, K) int8 x (K, N) int8`` with int32 sums
+                           on the s8 tensor cores (exact), or the
+                           weight-only form (float lhs, each int8 weight
+                           decoded to bfloat16, exact) --
+                           ``csrc/quant_gemm.cu``, ``csrc/wo_gemm.cuh``.
   * ``wq_gemv``          : small-M float rows against a streamed int8
                            weight, split-K -- ``csrc/wq_gemv.cu``.
   * ``int4_gemm``        : float ``(M, K)`` against a nibble-packed int4
-                           weight ``(ceil(K/2), N)``, unpacked at its
-                           shared-memory load, float32 accumulation --
-                           ``csrc/int4_gemm.cu``.
+                           weight ``(ceil(K/2), N)``, each nibble decoded
+                           to bfloat16 on the tensor cores --
+                           ``csrc/int4_gemm.cu``, ``csrc/wo_gemm.cuh``.
   * ``int4_gemv``        : the small-M form of ``int4_gemm``, each packed
                            byte streamed once and feeding two k rows,
                            split-K -- ``csrc/int4_gemv.cu``.
   * ``fp8_gemm``         : e4m3 (or float, weight-only) ``(M, K)`` x
                            e4m3 ``(K, N)``, float32 accumulation: e4m3 x
                            e4m3 on the tensor cores (each byte decoded to
-                           fp16, exact), split-K -- ``csrc/fp8_gemm.cu``.
+                           fp16, exact) -- ``csrc/fp8_gemm.cu``.
   * ``quant_im2col_conv``: the implicit-im2col conv with int8 input and
                            filter and int32 accumulation --
                            ``csrc/quant_im2col_conv.cu``.
@@ -36,12 +37,15 @@ weight-only, int4 and fp8 forms sum float32 products (e4m3 decodes to
 float32 exactly), in another order than their plain versions: they agree
 to float32 rounding, not bit for bit.
 
-"Float" is float32 or bfloat16: a bfloat16 lhs widens to float32 at the
-load (exact), as the reference casts the weight to the lhs dtype and
-accumulates in float32 (every int8, int4 and e4m3 value is a bfloat16
-value).  The output is float32 unless ``out_dtype=torch.bfloat16``;
-``fp8_gemm`` rounds to it in its epilogue, the other kernels cast their
-float32 result once after the kernel.
+"Float" is float32 or bfloat16, as the reference casts the weight to
+the lhs dtype and accumulates in float32 (every int8, int4 and e4m3 value
+is a bfloat16 value).  On the tensor cores a float32 lhs is split exactly
+into three bfloat16 terms (``csrc/wo_gemm.cuh``); the CUDA-core kernels
+widen a bfloat16 lhs at the load.  The output is float32 unless
+``out_dtype=torch.bfloat16``: the three split-K tensor-core kernels
+(``quant_gemm``, ``int4_gemm``, ``fp8_gemm``, planned by
+:func:`tc_split_k`) round to it in their epilogue, the other kernels cast
+their float32 result once after the kernel.
 """
 from __future__ import annotations
 
@@ -98,7 +102,7 @@ def quant_gemm_plain(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
 
 def _quant_gemm_entry():
     fn = _build.load("quant_gemm").quant_gemm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -108,12 +112,13 @@ def quant_gemm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor, *,
                block: tuple[int, int, int] = (128, 128, 128),
                out_dtype=None) -> torch.Tensor:
     """``(a (M, K) @ b (K, N)) * scale[col]``: ``b`` int8, ``a`` int8 (int32
-    accumulation) or float32 (weight-only, float32 accumulation).
+    accumulation) or float32 / bfloat16 (weight-only, float32
+    accumulation); ``out_dtype`` float32 (default) or bfloat16.
 
-    ``a`` may be bfloat16 in the weight-only form.  ``block = (bm, bk,
-    bn)``: ``bm`` / ``bn`` pick the kernel's output tile, the largest of
-    ``mapper.GEMM_TILES`` not above them; the kernel walks all of K (the
-    OS order), so ``bk`` is not used."""
+    One tensor-core kernel for every M, its tile and K split from
+    :func:`tc_split_k` (int32 partial planes for an int8 ``a``, float32
+    for a float one); the function does not depend on the blocking, so
+    ``block`` is not used."""
     M, K = a.shape
     K2, N = b.shape
     if K != K2 or b.dtype != torch.int8:
@@ -127,17 +132,63 @@ def quant_gemm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor, *,
         torch.int8 if a_int8 else float_dtype("quant_gemm", a), torch.int8,
         torch.float32))
     out_dtype = check_out_dtype("quant_gemm", out_dtype)
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    _tc_check_constants("quant_gemm")
+    bm, kc, ksplit = tc_split_k(M, K, N, sm_count(dev.index))
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    partial = torch.empty((ksplit if ksplit > 1 else 0, M, N),
+                          dtype=torch.int32 if a_int8 else torch.float32,
+                          device=dev)
+    a_kind = 2 if a_int8 else is_bf16(a.dtype)
     status = _quant_gemm_entry()(
-        a.data_ptr(), b.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
-        N, kernel_tile(block[0]), kernel_tile(block[2]), int(a_int8),
-        is_bf16(a.dtype), torch.cuda.current_stream(dev).cuda_stream)
+        a.data_ptr(), b.data_ptr(), scale.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), M, K, N, bm, kc, ksplit, a_kind, is_bf16(out_dtype),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "quant_gemm")
     quant_gemm.launches += 1
-    return _cast_out(out, out_dtype)
+    return out
 
 
 quant_gemm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the split-K tensor-core GeMMs' planner
+# ---------------------------------------------------------------------------
+
+# the kernels' constants (csrc/mma.cuh: kBN, kBK), checked against each
+# library's <name>_tiles when it loads
+TC_TILE_N = 128       # output columns per CTA
+TC_STEP_K = 64        # K depth of one pipeline stage
+TC_TILE_ROWS = (16, 32, 64, 128)
+
+
+def tc_split_k(M: int, K: int, N: int, sms: int, weight_bytes: float = 1.0
+               ) -> tuple[int, int, int]:
+    """``(bm, kc, ksplit)`` of the split-K tensor-core kernels
+    (``fp8_gemm``'s e4m3 path, ``quant_gemm``, ``int4_gemm``).
+
+    ``bm``: the CTA's rows, the smallest of 16, 32, 64, 128 that covers M
+    (128 above).  K splits into ``ksplit`` chunks of ``kc`` rows, ``kc`` a
+    multiple of the 64-deep stage (so an int4 chunk starts on a whole
+    packed byte), enough to put about two CTAs on each of ``sms`` SMs, but
+    no more chunks than keep the 4-byte partial planes (``ksplit * M * N *
+    4`` bytes) within eight times the weight's ``K * N * weight_bytes``
+    (1 for int8 and e4m3, 0.5 for int4: the planes of one call fit the 50
+    MB L2 at Yi-9B's shapes)."""
+    bm = next((t for t in TC_TILE_ROWS if t >= M), TC_TILE_ROWS[-1])
+    tiles = -(-M // bm) * -(-N // TC_TILE_N)
+    want = max(1, -(-2 * sms // tiles))
+    want = max(1, min(want, int(2 * K * weight_bytes) // M))
+    kc = -(-K // want)
+    kc = -(-kc // TC_STEP_K) * TC_STEP_K         # whole stages
+    return bm, kc, -(-K // kc)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_check_constants(name: str) -> None:
+    """Once a process: library ``name``'s constants are the planner's."""
+    _build.check_constants(_build.load(name), f"{name}_tiles",
+                           (TC_TILE_N, TC_STEP_K))
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +277,7 @@ int4_gemv_plain = int4_gemm_plain     # the same function at M <= 8
 
 def _int4_gemm_entry():
     fn = _build.load("int4_gemm").int4_gemm
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -237,9 +288,11 @@ def int4_gemm(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
               out_dtype=None) -> torch.Tensor:
     """``(a (M, K) @ unpack(w) (K, N)) * scale[col]`` with ``a`` float32 or
     bfloat16 and ``w`` nibble-packed along K, ``(ceil(K/2), N)`` int8;
-    ``k_size`` is the logical K.  ``block = (bm, bk, bn)``: ``bm`` / ``bn``
-    pick the kernel's output tile as in :func:`quant_gemm`; the kernel walks
-    all of K 16 deep (an even step), so ``bk`` is not used."""
+    ``k_size`` is the logical K, ``out_dtype`` float32 (default) or
+    bfloat16.  The tensor-core kernel's tile and K split come from
+    :func:`tc_split_k` (chunks of whole 64-deep stages start on whole
+    packed bytes); the function does not depend on the blocking, so
+    ``block`` is not used."""
     M, K = a.shape
     N = w.shape[1]
     _check_packed("int4_gemm", a, w, k_size)
@@ -250,14 +303,19 @@ def int4_gemm(a: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
     dev = check_operands("int4_gemm", a, w, scale, dtypes=(
         float_dtype("int4_gemm", a), torch.int8, torch.float32))
     out_dtype = check_out_dtype("int4_gemm", out_dtype)
-    out = torch.empty((M, N), dtype=torch.float32, device=dev)
+    _tc_check_constants("int4_gemm")
+    bm, kc, ksplit = tc_split_k(M, K, N, sm_count(dev.index),
+                                weight_bytes=0.5)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    partial = torch.empty((ksplit if ksplit > 1 else 0, M, N),
+                          dtype=torch.float32, device=dev)
     status = _int4_gemm_entry()(
-        a.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K,
-        N, kernel_tile(block[0]), kernel_tile(block[2]), is_bf16(a.dtype),
-        torch.cuda.current_stream(dev).cuda_stream)
+        a.data_ptr(), w.data_ptr(), scale.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), M, K, N, bm, kc, ksplit, is_bf16(a.dtype),
+        is_bf16(out_dtype), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "int4_gemm")
     int4_gemm.launches += 1
-    return _cast_out(out, out_dtype)
+    return out
 
 
 int4_gemm.launches = 0
@@ -337,40 +395,6 @@ def fp8_gemm_plain(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
     return _scaled(torch.matmul(a.float(), b.float()), scale, out_dtype)
 
 
-# the kernel's constants (csrc/fp8_gemm.cu: kBN, kBK), checked against the
-# source when it loads
-FP8_TILE_N = 128      # output columns per CTA
-FP8_STEP_K = 64       # K depth of one pipeline stage
-FP8_TILE_ROWS = (16, 32, 64, 128)
-
-
-def fp8_split_k(M: int, K: int, N: int, sms: int
-                ) -> tuple[int, int, int]:
-    """``(bm, kc, ksplit)`` of the e4m3 tensor-core kernel.
-
-    ``bm``: the CTA's rows, the smallest of 16, 32, 64, 128 that covers M
-    (128 above).  K splits into ``ksplit`` chunks of ``kc`` rows, ``kc`` a
-    multiple of the 64-deep stage, enough to put about two CTAs on each of
-    ``sms`` SMs, but no more chunks than keep the f32 partial planes
-    (``ksplit * M * N * 4`` bytes) within eight times the e4m3 weight's
-    ``K * N`` (the planes of one call fit the 50 MB L2 at Yi-9B's
-    shapes)."""
-    bm = next((t for t in FP8_TILE_ROWS if t >= M), FP8_TILE_ROWS[-1])
-    tiles = -(-M // bm) * -(-N // FP8_TILE_N)
-    want = max(1, -(-2 * sms // tiles))
-    want = max(1, min(want, 2 * K // M))
-    kc = -(-K // want)
-    kc = -(-kc // FP8_STEP_K) * FP8_STEP_K       # whole stages
-    return bm, kc, -(-K // kc)
-
-
-@functools.lru_cache(maxsize=None)
-def _fp8_check_constants() -> None:
-    """Once a process: the source's constants are the planner's."""
-    _build.check_constants(_build.load("fp8_gemm"), "fp8_gemm_tiles",
-                           (FP8_TILE_N, FP8_STEP_K))
-
-
 def _fp8_gemm_entry():
     fn = _build.load("fp8_gemm").fp8_gemm
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
@@ -388,11 +412,12 @@ def fp8_gemm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor, *,
     bfloat16.
 
     e4m3 ``a`` (every model call): the tensor-core kernel, its tile and K
-    split from :func:`fp8_split_k`; the function does not depend on the
+    split from :func:`tc_split_k`; the function does not depend on the
     blocking, so ``block`` is not used.  A float ``a``: the CUDA-core tile,
-    ``block``'s ``bm`` / ``bn`` picking the output tile as in
-    :func:`quant_gemm` (the kernel walks all of K).  There is no GEMV
-    form: decode rows take the tensor-core kernel too, padded to 16 rows."""
+    ``block``'s ``bm`` / ``bn`` picking the output tile, the largest of
+    ``mapper.GEMM_TILES`` not above them (the kernel walks all of K).
+    There is no GEMV form: decode rows take the tensor-core kernel too,
+    padded to 16 rows."""
     M, K = a.shape
     K2, N = b.shape
     if K != K2 or b.dtype != FP8_DTYPE:
@@ -408,10 +433,9 @@ def fp8_gemm(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor, *,
     out_dtype = check_out_dtype("fp8_gemm", out_dtype)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if a_fp8:
-        _fp8_check_constants()
-        sms = sm_count(dev.index)
-        bm, kc, ksplit = fp8_split_k(M, K, N, sms)
-        bn, a_kind = FP8_TILE_N, 2
+        _tc_check_constants("fp8_gemm")
+        bm, kc, ksplit = tc_split_k(M, K, N, sm_count(dev.index))
+        bn, a_kind = TC_TILE_N, 2
     else:
         bm, bn = kernel_tile(block[0]), kernel_tile(block[2])
         kc, ksplit, a_kind = K, 1, is_bf16(a.dtype)

@@ -142,36 +142,6 @@ class TestKernel:
             tqk.fp8_gemm(a, quant.to_fp8(torch.zeros(8, 3)), torch.ones(4))
 
 
-# the split of the e4m3 tensor-core kernel at Yi-9B's projection shapes
-# (both widths) and at ragged ones
-SPLIT_SHAPES = [(M, K, N) for M in (1, 8, 9, 33, 128, 300)
-                for K, N in ((4096, 4096), (4096, 512), (4096, 11008),
-                             (11008, 4096), (4096, 64000), (97, 129))]
-
-
-class TestSplitK:
-    @pytest.mark.parametrize("M,K,N", SPLIT_SHAPES)
-    def test_chunks_cover_k_once_in_whole_stages(self, M, K, N):
-        bm, kc, ksplit = tqk.fp8_split_k(M, K, N, 132)
-        assert bm in tqk.FP8_TILE_ROWS and (bm >= M or bm == 128)
-        # chunk z covers K rows [z * kc, min(K, (z + 1) * kc)): every row
-        # once, no chunk empty
-        assert kc % tqk.FP8_STEP_K == 0
-        assert (ksplit - 1) * kc < K <= ksplit * kc
-        # the f32 partial planes (the wrapper's (ksplit, M, N) scratch)
-        # stay within eight times the e4m3 weight
-        assert ksplit == 1 or ksplit * M * N * 4 <= 8 * K * N
-
-    @pytest.mark.parametrize("M", [8, 128])
-    def test_grid_covers_the_card_at_n512(self, M):
-        bm, _, ksplit = tqk.fp8_split_k(M, 4096, 512, 132)
-        assert -(-M // bm) * (512 // tqk.FP8_TILE_N) * ksplit >= 132
-
-    def test_one_chunk_where_the_tiles_fill_the_card(self):
-        assert tqk.fp8_split_k(128, 4096, 64000, 132)[2] == 1
-        assert tqk.fp8_split_k(8, 4096, 64000, 132) == (16, 4096, 1)
-
-
 # ---------------------------------------------------------------------------
 # the casts
 # ---------------------------------------------------------------------------

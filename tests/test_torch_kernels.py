@@ -318,8 +318,10 @@ def test_ctypes_signature_matches_the_source(monkeypatch, module, entry,
 
 # the split-K planners' copies of their kernels' constants (the C side
 # also exports them, and the wrapper checks them when the library loads)
+TC_CONSTANTS = {"kBN": t_qk.TC_TILE_N, "kBK": t_qk.TC_STEP_K}
 PLANNER_CONSTANTS = [
-    ("fp8_gemm", {"kBN": t_qk.FP8_TILE_N, "kBK": t_qk.FP8_STEP_K}),
+    ("fp8_gemm", TC_CONSTANTS), ("quant_gemm", TC_CONSTANTS),
+    ("int4_gemm", TC_CONSTANTS),
     ("zero_gate_gemm", {"kBN": t_zg.TILE_N, "kStep": t_zg.TILE_STEP,
                         "kTileCtasPerSm": t_zg.TILE_CTAS_PER_SM,
                         "kStreamThreads": t_zg.STREAM_THREADS,
@@ -329,11 +331,15 @@ PLANNER_CONSTANTS = [
 @pytest.mark.parametrize("source,consts", PLANNER_CONSTANTS,
                          ids=[c[0] for c in PLANNER_CONSTANTS])
 def test_planner_constants_match_the_source(source, consts):
-    src = (_build.CSRC / f"{source}.cu").read_text()
+    # a constant may sit in a header the source includes (mma.cuh holds
+    # the tensor-core kernels' tile); the source exports it
+    cu = _build.CSRC / f"{source}.cu"
+    src = b"\n".join(_build._sources(cu, set())).decode()
     for name, value in consts.items():
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m is not None and int(m.group(1)) == value, name
-        assert f"= {name};" in src.split(f"{source}_tiles(")[1], name
+        assert f"= {name};" in cu.read_text().split(f"{source}_tiles(")[1], \
+            name
 
 
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
