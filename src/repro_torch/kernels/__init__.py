@@ -57,7 +57,7 @@ def check_operands(what: str, *tensors: torch.Tensor,
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """True when every tensor lies on the CPU (the plain-version case)."""
-    return all(t.device.type == "cpu" for t in tensors)
+    return all(t.is_cpu for t in tensors)
 
 
 def check_out_dtype(what: str, out_dtype,

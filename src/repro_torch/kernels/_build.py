@@ -11,6 +11,7 @@ raises if any of them fails; :func:`load` opens one library with
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -128,6 +129,14 @@ def check_constants(lib: ctypes.CDLL, symbol: str,
     if tuple(got) != tuple(want):
         raise RuntimeError(f"{symbol}: the source has {tuple(got)}, the "
                            f"wrapper's planner {tuple(want)}")
+
+
+@functools.lru_cache(maxsize=4096)
+def int_args(*values: int) -> ctypes.Array:
+    """``values`` as one C int array, made once per distinct tuple: a C
+    entry that takes its ints through one pointer costs a launch a few
+    microseconds of ctypes conversion instead of one per argument."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def check(status: int, what: str) -> None:

@@ -18,15 +18,12 @@
 //   * A bfloat16 lhs is read in place from its stage as the A fragments.
 //     A float32 lhs is read from HBM once, as float32, and the same pass
 //     splits each value into three bfloat16 terms with a = a0 + a1 + a2
-//     exactly: a0 is a cut to its top 8 significant bits, a1 the same cut
-//     of the rest a - a0 (exact in f32), and a2 = a - a0 - a1, which has at
-//     most 8 significant bits left and so is a bfloat16 (for |a| >=
-//     2^-110; below that the cut drops bits under 2^-133).  inf and NaN go
-//     whole into a0.  Each ai * w is exact in the tensor core, so the
-//     kernel computes the reference's function -- f32 sums of a * w -- in
-//     another order.  a0's products accumulate apart from a1's and a2's
-//     (2^-8 of their size), so the two small terms add no rounding of the
-//     large sum.  Not TF32 (10 bits of a), nor two terms (16 bits).
+//     exactly (f32_terms.cuh: split3).  Each ai * w is exact in the
+//     tensor core, so the kernel computes the reference's function -- f32
+//     sums of a * w -- in another order.  a0's products accumulate apart
+//     from a1's and a2's (2^-8 of their size), so the two small terms add
+//     no rounding of the large sum.  Not TF32 (10 bits of a), nor two
+//     terms (16 bits).
 //   * Stages: 4, or 3 for a float32 lhs, whose A stage takes 34 KB at
 //     BM = 128 (with the three term tiles, 197 KB of shared memory).
 //   Ragged K or N, or an operand not 16-byte aligned, take the same
@@ -39,6 +36,7 @@
 
 #include "cp_async.cuh"
 #include "dtypes.cuh"
+#include "f32_terms.cuh"
 #include "mma.cuh"
 #include "split_k.cuh"
 
@@ -102,26 +100,6 @@ struct Int4Weight {
     store_row16(B16 + (2 * r + 1) * kWoBS + c, hi);
   }
 };
-
-// x = t0 + t1 + t2 exactly (see the note above): each term a float32
-// whose low 16 bits are zero, i.e. a bfloat16 in the high half
-__device__ __forceinline__ void split3(float x, unsigned (&t)[3]) {
-  const unsigned u = __float_as_uint(x);
-  if ((u & 0x7F800000u) == 0x7F800000u) {   // inf or NaN
-    t[0] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(x)) << 16;
-    t[1] = t[2] = 0;
-    return;
-  }
-  t[0] = u & 0xFFFF0000u;
-  const float r1 = x - __uint_as_float(t[0]);
-  t[1] = __float_as_uint(r1) & 0xFFFF0000u;
-  t[2] = __float_as_uint(r1 - __uint_as_float(t[1]));
-}
-
-// the bfloat16 pair (the high halves of lo and hi), lo first
-__device__ __forceinline__ unsigned hi_halves(unsigned lo, unsigned hi) {
-  return __byte_perm(lo, hi, 0x7632);
-}
 
 template <int BM, typename TA, typename W>
 struct Wo : WarpTiles<BM> {

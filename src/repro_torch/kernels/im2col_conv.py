@@ -3,69 +3,205 @@ version.
 
 Port of ``repro.kernels.im2col_conv.im2col_conv``, the paper's on-chip
 im2col: the im2col matrix is never materialized.  The kernel
-(``csrc/im2col_conv.cu``) loads each input patch once per channel chunk
-into shared memory, zero-filling the border itself (no padded copy of the
-input exists in device memory), and reuses it for all kh*kw taps.  Input
-and filter are float32 or bfloat16 (one dtype), the output ``out_dtype``
-(default ``x.dtype``).
+(``csrc/im2col_conv.cu``) runs on the bf16 tensor cores: a GeMM row is an
+output pixel, a column an output channel.  For each channel chunk it loads
+the input patch that a box of output pixels needs once into shared memory,
+zero-filling the border itself (no padded copy of the input exists in
+device memory), splits it once into exact bfloat16 terms, and reuses it
+for all kh*kw taps; :func:`conv_plan` picks the box, the chunk and the
+split of the chunks over CTAs.  Input and filter are float32 or bfloat16
+(one dtype), the output ``out_dtype`` (default ``x.dtype``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import hw
 from repro_torch.kernels import (_build, check_operands, check_out_dtype,
-                                 is_bf16, on_cpu)
+                                 is_bf16, on_cpu, sm_count)
 from repro_torch.kernels.ref import (conv_out_hw, normalize_padding,
                                      normalize_stride)
 
-TILE_PIXELS = 64       # output pixels per CTA (th * tw)
+TILE_PIXELS = 64       # output pixels per CTA of the int8 and depthwise convs
 MAX_ROWS = 8           # tallest pixel tile
-MAX_CIN_CHUNK = 32     # deepest channel chunk held in shared memory
+
+# the tensor-core kernel's constants (csrc/im2col_conv.cu: kConvRows,
+# kConvStages, kPlanePad, the weight rows' pads, kFoldSlack), checked
+# against the library's im2col_conv_tiles when it loads
+CONV_ROWS = 128        # output pixels (GeMM rows) per CTA
+CONV_STAGES = 4        # weight slices in flight
+PLANE_PAD = 16         # bytes after a patch position's channels
+B_PAD = {4: 4, 2: 8}   # elements after a weight row, by element size
+CONV_CHUNKS = (32, 16)  # channels per chunk, deepest first
+CONV_COLS = (32, 64, 128)  # output channels per CTA
+FOLD_CK = 4            # a stem's chunk: C_in <= 4, the taps folded into K
+FOLD_SLACK = 64        # bytes after a folded plane (kFoldSlack)
+# steps a CTA keeps at least when the channel chunks split: a split that
+# leaves a 1x1 conv one step a CTA adds plane traffic and no overlap
+MIN_SPLIT_STEPS = 4
+# what a box costs beyond its m16 row tiles, in m16 tiles: every step's
+# weight slice, B fragments and barriers, whatever the box's pixels
+BOX_COST = 4
 
 
 def pixel_tile(block_rows: int, block_cout: int) -> tuple[int, int, int]:
     """``(th, tw, bco)``: the CTA's ``th x tw = 64`` output pixels, ``th``
     the largest power of two not above ``min(block_rows, 8)``, and its
-    output channels, 64 or (``block_cout < 64``) 32.  The float and the
-    int8 conv kernels share this tile."""
+    output channels, 64 or (``block_cout < 64``) 32.  The int8 conv
+    (``quant_im2col_conv``) and ``dwconv`` share this tile."""
     th = 1
     while th * 2 <= min(max(block_rows, 1), MAX_ROWS):
         th *= 2
     return th, TILE_PIXELS // th, 64 if block_cout >= 64 else 32
 
 
-def conv_tiling(C_in: int, kh: int, kw: int, stride, *, block_rows: int = 8,
-                block_cout: int = 128, block_cin: int = 512
-                ) -> tuple[int, int, int, int, int]:
-    """``(th, tw, ck, bco, smem_bytes)`` of the kernel for one conv.
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """The tensor-core conv's tile for one geometry: a box of ``ni`` images
+    x ``th`` rows x ``tw`` columns of output pixels (at most
+    ``CONV_ROWS``), ``bn`` output channels (``CONV_COLS``), ``ck`` input
+    channels per chunk, the chunks split over ``ksplit`` CTAs of ``cpc``
+    each, ``nb`` patch buffers; ``boxes`` x ``co_tiles`` x ``ksplit``
+    CTAs, and the shared memory each takes."""
+    ni: int
+    th: int
+    tw: int
+    ck: int
+    bn: int
+    cpc: int
+    ksplit: int
+    nb: int
+    boxes: int
+    co_tiles: int
+    smem_bytes: int
 
-    How the reference's tiling kwargs map onto the CUDA tile:
-      * ``block_rows`` -> ``th``: the largest power of two not above
-        ``min(block_rows, 8)``; the tile is ``th x (64 // th)`` pixels.
-      * ``block_cout`` -> ``bco``: 64 output channels per CTA, or 32 when
-        ``block_cout < 64``.
-      * ``block_cin`` -> ``ck``: ``min(block_cin, 32, C_in)`` channels per
-        shared-memory chunk, halved until the CTA fits 227 KB.
-    """
+    @property
+    def ctas(self) -> int:
+        return self.boxes * self.co_tiles * self.ksplit
+
+
+def fold_rows(kw: int) -> int:
+    """A folded conv's K a step (``ck == FOLD_CK``): one filter row's kw
+    taps x 4 channels, in whole k16 steps."""
+    return -(-kw * FOLD_CK // 16) * 16
+
+
+def conv_smem(ni: int, th: int, tw: int, kh: int, kw: int, stride, ck: int,
+              bn: int, nb: int, elem_bytes: int) -> int:
+    """Shared memory of one CTA (the kernel's ``conv_smem``): ``nb`` patch
+    buffers of ``ck`` channels per position, the ring of weight slices,
+    and the term planes (three for float32, one for bfloat16) with
+    ``PLANE_PAD`` bytes after each position -- or, folded (``ck ==
+    FOLD_CK``), ``fold_rows(kw)`` weight rows a slice and planes of 4
+    channels a position with ``FOLD_SLACK`` bytes after each."""
     sh, sw = normalize_stride(stride)
-    th, tw, bco = pixel_tile(block_rows, block_cout)
-    ck = max(1, min(block_cin, MAX_CIN_CHUNK, C_in))
-    ph, pw = (th - 1) * sh + kh, (tw - 1) * sw + kw
+    pos = ni * ((th - 1) * min(sh, kh) + kh) * ((tw - 1) * min(sw, kw) + kw)
+    terms = 3 if elem_bytes == 4 else 1
+    fold = ck == FOLD_CK
+    rows = fold_rows(kw) if fold else ck
+    plane = pos * 8 + FOLD_SLACK if fold else pos * (2 * ck + PLANE_PAD)
+    return (-(-nb * pos * ck * elem_bytes // 16) * 16    # 16-byte aligned
+            + CONV_STAGES * rows * (bn + B_PAD[elem_bytes]) * elem_bytes
+            + terms * plane)
 
-    def smem(ck):
-        return 4 * (ph * pw * ck + ck * bco)
 
-    while ck > 1 and smem(ck) > hw.SMEM_PER_BLOCK:
-        ck //= 2
-    if smem(ck) > hw.SMEM_PER_BLOCK:
+def conv_plan(x_shape, w_shape, *, stride=1, padding=0, elem_bytes: int = 4,
+              sms: int = 132, block_rows: int = 8, block_cout: int = 128,
+              block_cin: int = 512) -> ConvPlan:
+    """The kernel's tile for ``x (N, H, W, C_in)`` conv ``w (kh, kw, C_in,
+    C_out)``.
+
+    The box: among every ``th x tw`` of at most ``CONV_ROWS`` output
+    pixels with ``th <= block_rows`` -- and, where a whole map fits, ``ni``
+    whole images -- the one with the least work, counted in m16 row tiles
+    (a box computes ``ceil(pixels / 16)`` and costs ``BOX_COST`` more),
+    then the fewest patch positions to load, then the deeper chunk, within
+    the 227 KB of shared memory.  The tiling kwargs:
+      * ``block_rows`` caps the box's rows ``th``;
+      * ``block_cout`` -> ``bn``: the smallest of 32, 64, 128 output
+        channels per CTA that covers ``min(C_out, block_cout)`` (128
+        above);
+      * ``block_cin`` -> ``ck``: 32 channels per chunk, or 16 when
+        ``block_cin < 32`` or C_in <= 16 or 32 does not fit.  A stem of
+        at most 4 channels folds instead (``ck = FOLD_CK``): one step per
+        filter row, its kw taps x 4 channels in K (:func:`fold_rows`).
+    The channel chunks split over CTAs until the grid holds about two CTAs
+    for each of ``sms`` SMs (one chunk each at most), but no more f32
+    planes of the output than eight times the input and filter take, and
+    each CTA keeps ``MIN_SPLIT_STEPS`` steps.
+    ``nb``: the patch buffers the ring needs, ``(CONV_STAGES - 1) // steps
+    + 1`` for ``kh * kw`` steps a chunk (``kh`` folded): four for a 1x1
+    conv, one from 2x2 up."""
+    N, H, W, C_in = x_shape
+    kh, kw, _, C_out = w_shape
+    st = normalize_stride(stride)
+    H_out, W_out = conv_out_hw(H, W, kh, kw, st, normalize_padding(padding))
+    return _conv_plan(N, H, W, C_in, kh, kw, C_out, st, H_out, W_out,
+                      elem_bytes, sms, block_rows, block_cout, block_cin)
+
+
+@functools.lru_cache(maxsize=4096)
+def _conv_plan(N, H, W, C_in, kh, kw, C_out, stride, H_out, W_out,
+               elem_bytes, sms, block_rows, block_cout,
+               block_cin) -> ConvPlan:
+    sh, sw = stride
+    fold = C_in <= FOLD_CK
+    T = kh if fold else kh * kw          # steps a chunk
+    bn = next(t for t in CONV_COLS if t >= min(C_out, block_cout)
+              or t == CONV_COLS[-1])
+    co_tiles = -(-C_out // bn)
+    cks = (FOLD_CK,) if fold else (
+        CONV_CHUNKS if block_cin >= 32 and C_in > 16 else (16,))
+    # planes of N * H_out * W_out * C_out floats, eight times the operands
+    cap = max(1, 8 * (N * H * W * C_in + T * C_in * C_out)
+              // (N * H_out * W_out * C_out))
+    best = None
+    for tw in range(1, min(W_out, CONV_ROWS) + 1):
+        for th in range(1, min(max(1, block_rows), H_out,
+                               CONV_ROWS // tw) + 1):
+            whole = th == H_out and tw == W_out
+            for ni in range(1, (min(N, CONV_ROWS // (th * tw)) if whole
+                                else 1) + 1):
+                boxes = -(-N // ni) * -(-H_out // th) * -(-W_out // tw)
+                pos = ni * ((th - 1) * min(sh, kh) + kh) \
+                    * ((tw - 1) * min(sw, kw) + kw)
+                for ck in cks:
+                    nch = -(-C_in // ck)
+                    want = -(-2 * sms // (boxes * co_tiles))
+                    most = max(1, nch * T // MIN_SPLIT_STEPS)
+                    cpc = -(-nch // max(1, min(nch, want, cap, most)))
+                    nb = min(cpc, (CONV_STAGES - 1) // T + 1)
+                    smem = conv_smem(ni, th, tw, kh, kw, (sh, sw), ck, bn,
+                                     nb, elem_bytes)
+                    if smem > hw.SMEM_PER_BLOCK:
+                        continue
+                    key = (boxes * (-(-(ni * th * tw) // 16) + BOX_COST),
+                           boxes * pos, -ck)
+                    if best is None or key < best[0]:
+                        best = (key, ConvPlan(ni, th, tw, ck, bn, cpc,
+                                              -(-nch // cpc), nb, boxes,
+                                              co_tiles, smem))
+                    break
+    if best is None:
         raise ValueError(
             f"im2col_conv: a {kh}x{kw} stride ({sh},{sw}) patch does not "
             "fit one CTA's shared memory")
-    return th, tw, ck, bco, smem(ck)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """Once a process: the bound C entry, the library's constants checked
+    against the planner's."""
+    _build.check_constants(_build.load("im2col_conv"), "im2col_conv_tiles",
+                           (CONV_ROWS, CONV_STAGES, PLANE_PAD, B_PAD[4],
+                            B_PAD[2], FOLD_SLACK))
+    return _entry()
 
 
 def im2col_conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride=1,
@@ -92,8 +228,7 @@ def im2col_conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride=1,
 
 def _entry():
     fn = _build.load("im2col_conv").im2col_conv
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 19 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,7 +240,7 @@ def im2col_conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
 
     ``stride``: int or ``(sh, sw)``; ``padding``: int, ``(ph, pw)`` or
     ``((pt, pb), (pl, pr))``.  The tiling kwargs map onto the CUDA tile as
-    :func:`conv_tiling` says."""
+    :func:`conv_plan` says."""
     N, H, W, C_in = x.shape
     kh, kw, C_in2, C_out = w.shape
     if C_in != C_in2:
@@ -124,14 +259,21 @@ def im2col_conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
                                  out_dtype=out_dtype)
     dev = check_operands("im2col_conv", x, w)
     out_dtype = check_out_dtype("im2col_conv", out_dtype, x.dtype)
-    th, tw, ck, bco, _ = conv_tiling(
-        C_in, kh, kw, (sh, sw), block_rows=block_rows,
-        block_cout=block_cout, block_cin=block_cin)
+    plan = _conv_plan(N, H, W, C_in, kh, kw, C_out, (sh, sw), H_out, W_out,
+                      x.element_size(), sm_count(dev.index), block_rows,
+                      block_cout, block_cin)
     out = torch.empty((N, H_out, W_out, C_out), dtype=out_dtype, device=dev)
-    status = _entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W,
-                      C_in, kh, kw, C_out, sh, sw, pt, pl, H_out, W_out, th,
-                      tw, ck, bco, is_bf16(x.dtype), is_bf16(out_dtype),
-                      torch.cuda.current_stream(dev).cuda_stream)
+    partial = None if plan.ksplit == 1 else torch.empty(
+        (plan.ksplit, N * H_out * W_out, C_out), dtype=torch.float32,
+        device=dev)
+    status = _launcher()(
+        x.data_ptr(), w.data_ptr(),
+        None if partial is None else partial.data_ptr(), out.data_ptr(),
+        _build.int_args(N, H, W, C_in, kh, kw, C_out, sh, sw, pt, pl, H_out,
+                        W_out, plan.ni, plan.th, plan.tw, plan.ck, plan.bn,
+                        plan.cpc, plan.ksplit, is_bf16(x.dtype),
+                        is_bf16(out_dtype)),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "im2col_conv")
     im2col_conv.launches += 1
     return out

@@ -82,7 +82,8 @@ def _imports(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize("path", sorted(
-    [ROOT / "chip_smoke.py", *(ROOT / "src" / "repro_torch").rglob("*.py")]),
+    [ROOT / "chip_smoke.py", *(ROOT / "src" / "repro_torch").rglob("*.py"),
+     *(ROOT / "tools").glob("*.py")]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_import_no_jax_or_repro(path):
     assert not _imports(path) & {"jax", "jaxlib", "repro"}
