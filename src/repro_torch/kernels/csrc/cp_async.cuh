@@ -14,6 +14,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                "l"(src), "r"(src_bytes));
 }
 
+// BYTES (4 or 8) global -> shared, both BYTES-aligned, through L1; bytes
+// past src_bytes (0 or BYTES) are zeros
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            int src_bytes) {
+  static_assert(BYTES == 4 || BYTES == 8, "cp.async.ca size");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(BYTES), "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

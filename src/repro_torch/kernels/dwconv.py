@@ -3,52 +3,113 @@ version.
 
 Port of ``repro.kernels.dwconv.dwconv``, the paper's memory-bound showcase
 (Fig. 14): no reduction over channels, kh*kw multiply-adds per output.
-The kernel (``csrc/dwconv.cu``) loads each CTA's input patch and its halo
-once into shared memory, zero-filling the border itself (no padded copy
-of the input exists in device memory), 32 channels per CTA, one per lane.
-Input and filter are float32 or bfloat16 (one dtype), the output
-``out_dtype`` (default ``x.dtype``).
+The kernel (``csrc/dwconv.cu``) fills each CTA's input patch and its halo
+once into shared memory with 16-byte copies along C (4 float32 or 8
+bfloat16 channels a copy), zero-filling the border itself (no padded copy
+of the input exists in device memory); each thread computes four
+neighbouring outputs along W for one channel vector.  :func:`dw_plan`
+picks the tile from the geometry and the SM count.  Input and filter are
+float32 or bfloat16 (one dtype), the output ``out_dtype`` (default
+``x.dtype``).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import hw
 from repro_torch.kernels import (_build, check_operands, check_out_dtype,
-                                 is_bf16, on_cpu)
-from repro_torch.kernels.im2col_conv import pixel_tile
+                                 is_bf16, on_cpu, sm_count)
 from repro_torch.kernels.ref import (conv_out_hw, normalize_padding,
                                      normalize_stride)
 
-CHANNELS_PER_CTA = 32  # one warp's lanes
+# the kernel's constants (csrc/dwconv.cu: kStrip, kMaxThreads,
+# kMaxVectors), checked against the library's dwconv_tiles when it loads
+STRIP = 4              # output pixels along W a thread computes
+MAX_THREADS = 256      # threads a CTA
+MAX_VECTORS = 32       # channel vectors a CTA, a power of two
+VECTOR_BYTES = 16      # one copy along C: 4 float32 or 8 bfloat16 channels
+# what a CTA costs beyond the patch vectors it fills, in vectors: its
+# weight fill, its barrier and its share of the launch
+CTA_COST = 64
+# a patch no larger lets four CTAs share an SM, one filling while the
+# others compute
+SMEM_TARGET = hw.SMEM_STATIC_LIMIT
+LINE_BYTES = 128       # what a CTA reads of each pixel at least (or all C)
 
 
-def dw_tiling(kh: int, kw: int, stride) -> tuple[int, int, int]:
-    """``(th, tw, smem_bytes)`` of the kernel for one depthwise conv.
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """One depthwise conv's tile: ``th`` x ``tw`` output pixels (``tw`` a
+    multiple of STRIP) x ``nvc`` channel vectors of ``cv`` channels (16
+    bytes when ``vec``, else one element), ``threads`` a CTA (a thread per
+    strip of STRIP outputs and vector, rounded up to a warp), the shared
+    memory a CTA takes and the number of CTAs."""
+    th: int
+    tw: int
+    nvc: int
+    cv: int
+    vec: bool
+    threads: int
+    smem: int
+    ctas: int
 
-    The tile starts as the dense conv's 8 x 8 output pixels; a patch too
-    large for one CTA's shared memory halves it (width first) until it
-    fits.  A CTA always takes 32 channels: the reference's ``block_rows``
-    and ``block_c`` have no counterpart."""
-    sh, sw = normalize_stride(stride)
-    th, tw, _ = pixel_tile(8, 64)
 
-    def smem(th, tw):
-        return 4 * CHANNELS_PER_CTA * (((th - 1) * sh + kh)
-                                       * ((tw - 1) * sw + kw) + kh * kw)
+def _patch_smem(th, tw, nvc, kh, kw, sh, sw, slot_bytes) -> int:
+    """Bytes of one CTA's patch and weights, as the kernel lays them out."""
+    ph, pw = (th - 1) * sh + kh, (tw - 1) * sw + kw
+    return slot_bytes * nvc * (ph * pw + kh * kw)
 
-    while smem(th, tw) > hw.SMEM_PER_BLOCK and th * tw > 1:
-        if tw >= th:
-            tw = max(1, tw // 2)
-        else:
-            th = max(1, th // 2)
-    if smem(th, tw) > hw.SMEM_PER_BLOCK:
-        raise ValueError(f"dwconv: a {kh}x{kw} filter does not fit one "
-                         "CTA's shared memory")
-    return th, tw, smem(th, tw)
+
+@functools.lru_cache(maxsize=1024)
+def dw_plan(N: int, C: int, kh: int, kw: int, sh: int, sw: int, H_out: int,
+            W_out: int, elem_bytes: int, sms: int, vec: bool) -> DwPlan:
+    """The kernel's tile for one depthwise conv.
+
+    A CTA takes at least LINE_BYTES of channels of each pixel (all of
+    them where C is narrower), so that its copies read whole lines.
+    Every tile of at most MAX_THREADS strips x vectors is scored by the
+    patch vectors the whole grid fills (a tile's halo is read again by
+    each tile that shares it) plus CTA_COST a CTA.  Preferred, in order: a
+    CTA within SMEM_TARGET bytes, at least ``sms`` CTAs (every SM busy),
+    then the lowest score.  ``tw`` and ``th`` are the smallest tiles that
+    cover the map in a given number of columns / rows of tiles, so ragged
+    edges stay small.  Raises when not even a one-strip tile fits 227 KB."""
+    cv = VECTOR_BYTES // elem_bytes if vec else 1
+    slot = VECTOR_BYTES if vec else 4       # the scalar path widens to f32
+    nv = -(-C // cv)
+    # a CTA reads at least a 128-byte line of each pixel, or all of it
+    least = min(1 << (nv - 1).bit_length(), LINE_BYTES // slot)
+    nvcs = [1 << i for i in range(MAX_VECTORS.bit_length())
+            if least <= 1 << i <= MAX_VECTORS and (1 << i) < 2 * nv]
+    tws = sorted({STRIP * -(-(-(-W_out // k)) // STRIP)
+                  for k in range(1, -(-W_out // STRIP) + 1)})
+    ths = sorted({-(-H_out // k) for k in range(1, H_out + 1)})
+    best = None
+    for nvc in nvcs:
+        for tw in tws:
+            for th in ths:
+                units = th * (tw // STRIP) * nvc
+                if units > MAX_THREADS:
+                    break
+                smem = _patch_smem(th, tw, nvc, kh, kw, sh, sw, slot)
+                if smem > hw.SMEM_PER_BLOCK:
+                    break
+                ctas = N * -(-H_out // th) * -(-W_out // tw) * -(-nv // nvc)
+                ph, pw = (th - 1) * sh + kh, (tw - 1) * sw + kw
+                score = ctas * (nvc * ph * pw + CTA_COST)
+                key = (smem > SMEM_TARGET, ctas < sms, score, -units)
+                if best is None or key < best[0]:
+                    best = (key, DwPlan(th, tw, nvc, cv, vec,
+                                        -(-units // 32) * 32, smem, ctas))
+    if best is None:
+        raise ValueError(f"dwconv: a {kh}x{kw} stride ({sh},{sw}) patch does "
+                         "not fit one CTA's shared memory")
+    return best[1]
 
 
 def dwconv_plain(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
@@ -75,10 +136,18 @@ def dwconv_plain(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
 
 def _entry():
     fn = _build.load("dwconv").dwconv
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 16 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """Once a process: the bound C entry, the library's constants checked
+    against the planner's."""
+    _build.check_constants(_build.load("dwconv"), "dwconv_tiles",
+                           (STRIP, MAX_THREADS, MAX_VECTORS))
+    return _entry()
 
 
 def dwconv(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
@@ -86,7 +155,9 @@ def dwconv(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
     """``x (N, H, W, C)`` depthwise conv ``w (kh, kw, C)``.
 
     ``stride``: int or ``(sh, sw)``; ``padding``: int, ``(ph, pw)`` or
-    ``((pt, pb), (pl, pr))``.  The tile is :func:`dw_tiling`'s."""
+    ``((pt, pb), (pl, pr))``.  The tile is :func:`dw_plan`'s; 16-byte
+    copies where C is a multiple of a vector and x and w are 16-byte
+    aligned, else one element at a time."""
     N, H, W, C = x.shape
     kh, kw, C2 = w.shape
     if C != C2:
@@ -103,12 +174,19 @@ def dwconv(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=0,
                             padding=((pt, pb), (pl, pr)), out_dtype=out_dtype)
     dev = check_operands("dwconv", x, w)
     out_dtype = check_out_dtype("dwconv", out_dtype, x.dtype)
-    th, tw, _ = dw_tiling(kh, kw, (sh, sw))
     out = torch.empty((N, H_out, W_out, C), dtype=out_dtype, device=dev)
-    status = _entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C,
-                      kh, kw, sh, sw, pt, pl, H_out, W_out, th, tw,
-                      is_bf16(x.dtype), is_bf16(out_dtype),
-                      torch.cuda.current_stream(dev).cuda_stream)
+    elem = x.element_size()
+    vec = (C % (VECTOR_BYTES // elem) == 0
+           and (x.data_ptr() | w.data_ptr() | out.data_ptr())
+           % VECTOR_BYTES == 0)
+    plan = dw_plan(N, C, kh, kw, sh, sw, H_out, W_out, elem,
+                   sm_count(dev.index), vec)
+    status = _launcher()(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        _build.int_args(N, H, W, C, kh, kw, sh, sw, pt, pl, H_out, W_out,
+                        plan.th, plan.tw, plan.nvc, int(vec),
+                        is_bf16(x.dtype), is_bf16(out_dtype)),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "dwconv")
     dwconv.launches += 1
     return out

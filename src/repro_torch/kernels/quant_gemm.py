@@ -9,7 +9,11 @@ Port of the six kernels of ``repro.kernels.quant_gemm``:
                            decoded to bfloat16, exact) --
                            ``csrc/quant_gemm.cu``, ``csrc/wo_gemm.cuh``.
   * ``wq_gemv``          : small-M float rows against a streamed int8
-                           weight, split-K -- ``csrc/wq_gemv.cu``.
+                           weight on the bf16 tensor cores (each byte
+                           decoded to bf16, exact; a float32 lhs split
+                           into three exact bf16 terms), K split over
+                           warps and (where the grid is narrow) over CTAs
+                           in one launch -- ``csrc/wq_gemv.cu``.
   * ``int4_gemm``        : float ``(M, K)`` against a nibble-packed int4
                            weight ``(ceil(K/2), N)``, each nibble decoded
                            to bfloat16 on the tensor cores --
@@ -44,8 +48,9 @@ into three bfloat16 terms (``csrc/wo_gemm.cuh``); the CUDA-core kernels
 widen a bfloat16 lhs at the load.  The output is float32 unless
 ``out_dtype=torch.bfloat16``: the three split-K tensor-core kernels
 (``quant_gemm``, ``int4_gemm``, ``fp8_gemm``, planned by
-:func:`tc_split_k`) round to it in their epilogue, the other kernels cast
-their float32 result once after the kernel.
+:func:`tc_split_k`) and ``wq_gemv`` (planned by :func:`wq_plan`) round to
+it in their epilogue, ``int4_gemv`` and ``quant_im2col_conv`` cast their
+float32 result once after the kernel.
 """
 from __future__ import annotations
 
@@ -203,20 +208,110 @@ def wq_gemv_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
     return _scaled(torch.matmul(x.float(), w.float()), scale, out_dtype)
 
 
+# the streaming GEMV's constants (csrc/wq_gemv.cu: kCols, kStageRows,
+# kThreads, kRingBytes), checked against the library's wq_gemv_tiles when
+# it loads
+WQ_COLS = 128          # weight columns a CTA: 2 warps of 4 m16 tiles
+WQ_STAGE_ROWS = 64     # K rows a stage: one k16 step for each of 4 warps
+WQ_THREADS = 256       # 8 warps: 2 along N x 4 along K
+# kStages stages of 64 weight rows and 64 (+ 8 pad) values of 8 x rows
+WQ_RING_BYTES = 4 * (WQ_STAGE_ROWS * WQ_COLS + 8 * (WQ_STAGE_ROWS + 8) * 4)
+# the planner's model of a K split (fitted to the splits' device times at
+# Yi-9B's decode shapes and the ResNet50 head on an H100, in
+# tools/split_sweep.py --wq): an SM runs WQ_SM_OVERLAP CTAs' rows in the
+# time of one CTA's (their stages' latencies overlap), a CTA costs
+# WQ_CHUNK_COST rows beyond its own (its first stages, its warps' sum),
+# and each K chunk of a split column block WQ_PLANE_COST rows (its
+# plane, the fence and counter, the last CTA's read)
+WQ_SM_OVERLAP = 1.5
+WQ_CHUNK_COST = 768
+WQ_PLANE_COST = 32
+WQ_MAX_SPLIT = 256
+
+
+def wq_vec(N: int, address: int) -> int:
+    """The weight's copy width in bytes: the widest of 16, 8, 4 and 1 that
+    divides both N (so every row starts on it) and the weight's address."""
+    return next(v for v in (16, 8, 4, 1) if N % v == 0 and address % v == 0)
+
+
+@functools.lru_cache(maxsize=4096)
+def wq_plan(K: int, N: int, sms: int) -> tuple[int, int]:
+    """``(kc, ksplit)`` of the streaming int8 GEMV (any B <= 8: the rows of
+    x are the mma's n8).
+
+    K splits into ``ksplit`` chunks of ``kc`` rows over a grid of
+    ``ceil(N / 128) x ksplit`` CTAs, the split of at most WQ_MAX_SPLIT
+    chunks with the least modeled time: L = ceil(CTAs / ``sms``) CTAs on
+    the busiest SM take max(1, L / WQ_SM_OVERLAP) x (``kc`` +
+    WQ_CHUNK_COST) rows' time, and every chunk WQ_PLANE_COST more.  A few
+    column blocks (k / v, the ResNet50 head) split K only part of the way
+    to filling the card: past that the split-K hand-off costs more than
+    the idle SMs.  A CTA's shared memory does not grow with ``kc``: x
+    streams through the ring with the weight."""
+    n_col = -(-N // WQ_COLS)
+    best = None
+    for want in range(1, min(K, WQ_MAX_SPLIT) + 1):
+        kc = -(-K // want)
+        ks = -(-K // kc)
+        if ks != want:                  # the same split as a smaller want
+            continue
+        busiest = -(-n_col * ks // sms)
+        cost = max(1.0, busiest / WQ_SM_OVERLAP) * (kc + WQ_CHUNK_COST) \
+            + WQ_PLANE_COST * ks
+        if best is None or cost < best[0]:
+            best = (cost, kc, ks)
+    return best[1], best[2]
+
+
+# per (device, stream): the split-K planes (float32) and the column blocks'
+# arrival counters (int32, zero between launches: the last CTA of a block
+# resets its own), grown as calls need more
+_wq_scratch: dict = {}
+
+
+def _wq_workspace(dev: torch.device, stream: int, planes: int,
+                  blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    ws = _wq_scratch.get(key)
+    if ws is None or ws[0].numel() < planes or ws[1].numel() < blocks:
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(planes, have[0]), dtype=torch.float32,
+                          device=dev),
+              torch.zeros(max(blocks, have[1]), dtype=torch.int32,
+                          device=dev))
+        _wq_scratch[key] = ws
+    return ws
+
+
 def _wq_gemv_entry():
     fn = _build.load("wq_gemv").wq_gemv
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _wq_launcher():
+    """Once a process: the bound C entry, the library's constants checked
+    against the planner's."""
+    _build.check_constants(_build.load("wq_gemv"), "wq_gemv_tiles",
+                           (WQ_COLS, WQ_STAGE_ROWS, WQ_THREADS,
+                            WQ_RING_BYTES))
+    return _wq_gemv_entry()
 
 
 def wq_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
             block_k: int = 512, out_dtype=None) -> torch.Tensor:
     """``(x (B, K) @ w (K, N)) * scale[col]`` with B <= 8, ``x`` float32 or
-    bfloat16 and ``w`` int8, float32 accumulation.  ``block_k`` caps the K
-    depth one CTA walks; the wrapper splits K further until the grid covers
-    the card."""
+    bfloat16 and ``w`` int8, float32 accumulation, ``out_dtype`` float32
+    (default) or bfloat16, rounded in the kernel's epilogue.
+
+    The grid and its K split are :func:`wq_plan`'s, from the shape and
+    the SM count; the function does not depend on the blocking, so
+    ``block_k`` (the reference's K block, kept in the signature) is
+    checked and not used.  The weight is copied 16 bytes at a time where
+    N and its address allow (:func:`wq_vec`)."""
     B, K = x.shape
     K2, N = w.shape
     if K != K2 or w.dtype != torch.int8:
@@ -232,18 +327,23 @@ def wq_gemv(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, *,
         raise ValueError(f"wq_gemv: batch {B} outside 1..{MAX_BATCH}")
     if block_k < 1:
         raise ValueError(f"wq_gemv: block_k must be >= 1, got {block_k}")
-    sms = sm_count(dev.index)
-    kc, ksplit = split_k(K, N, sms, block_k)
-    out = torch.empty((B, N), dtype=torch.float32, device=dev)
-    partial = torch.empty((ksplit if ksplit > 1 else 0, B, N),
-                          dtype=torch.float32, device=dev)
-    status = _wq_gemv_entry()(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), B, K, N, kc, ksplit, is_bf16(x.dtype),
-        torch.cuda.current_stream(dev).cuda_stream)
+    kc, ksplit = wq_plan(K, N, sm_count(dev.index))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty((B, N), dtype=out_dtype, device=dev)
+    planes = counters = None
+    if ksplit > 1:
+        planes, counters = _wq_workspace(dev, stream, ksplit * B * N,
+                                         -(-N // WQ_COLS))
+    status = _wq_launcher()(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+        None if planes is None else planes.data_ptr(),
+        None if counters is None else counters.data_ptr(), out.data_ptr(),
+        _build.int_args(B, K, N, kc, ksplit, wq_vec(N, w.data_ptr()),
+                        is_bf16(x.dtype), is_bf16(out_dtype)),
+        stream)
     _build.check(status, "wq_gemv")
     wq_gemv.launches += 1
-    return _cast_out(out, out_dtype)
+    return out
 
 
 wq_gemv.launches = 0

@@ -485,6 +485,9 @@ PLANNER_CONSTANTS = [
                      "kConvStages": t_conv.CONV_STAGES,
                      "kPlanePad": t_conv.PLANE_PAD,
                      "kFoldSlack": t_conv.FOLD_SLACK}),
+    ("dwconv", {"kStrip": t_dw.STRIP, "kMaxThreads": t_dw.MAX_THREADS,
+                "kMaxVectors": t_dw.MAX_VECTORS}),
+    ("wq_gemv", {"kCols": t_qk.WQ_COLS, "kThreads": t_qk.WQ_THREADS}),
     ("zero_gate_gemm", {"kBN": t_zg.TILE_N, "kStep": t_zg.TILE_STEP,
                         "kTileCtasPerSm": t_zg.TILE_CTAS_PER_SM,
                         "kStreamThreads": t_zg.STREAM_THREADS,
