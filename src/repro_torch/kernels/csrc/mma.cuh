@@ -63,6 +63,13 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
       : "r"(smem_addr(p)));
 }
 
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
+
 __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
@@ -102,6 +109,77 @@ __device__ __forceinline__ void mma16832_s8(int (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The int8 weight of the s8 GeMMs is N-major, but the s8 B fragment wants
+// four neighbouring k of one column in each register, and ldmatrix.trans
+// moves 16-bit elements only; so a landed stage (KR K rows of BN bytes) is
+// transposed in 4 x 4 byte blocks into a K-major tile (BN rows of LDT
+// bytes), which ldmatrix then reads as the B fragments.
+//
+// The 16-byte chunk q of K row r of such a stage sits at chunk
+// s8_chunk<BN>(r, q): at BN = 128 the transpose's reads of four K words
+// then fall in distinct banks (narrower stages keep what fits).
+template <int BN>
+__device__ __forceinline__ int s8_chunk(int r, int q) {
+  return q ^ ((r >> 1) & 6 & (BN / 16 - 1));
+}
+
+// rows r[0..3] (4 bytes each) -> columns: r[j] byte i = old r[i] byte j
+__device__ __forceinline__ void transpose4x4(unsigned (&r)[4]) {
+  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
+  const unsigned t1 = __byte_perm(r[2], r[3], 0x5140);
+  const unsigned t2 = __byte_perm(r[0], r[1], 0x7362);
+  const unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
+  r[0] = __byte_perm(t0, t1, 0x5410);
+  r[1] = __byte_perm(t0, t1, 0x7632);
+  r[2] = __byte_perm(t2, t3, 0x5410);
+  r[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// The stage b8 (KR x BN bytes, chunks by s8_chunk) -> bt (BN rows of LDT
+// bytes).  A warp takes 4 K words x 8 N words (4 x 4 bytes each) a round:
+// at BN = 128 its reads hit 32 banks through the swizzle, and its writes
+// because each thread starts its four row writes at row (its N word % 8)
+// / 2 of its block.  KR is a multiple of 16, BN of 32.
+template <int KR, int BN, int LDT>
+__device__ __forceinline__ void transpose_s8(const uint8_t* b8,
+                                             uint8_t* bt) {
+  constexpr int kUnits = (KR / 16) * (BN / 32);
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int wu = threadIdx.x / 32; wu < kUnits; wu += kTcThreads / 32) {
+    const int kb = 4 * (wu % (KR / 16)) + lane % 4;  // K rows 4 kb .. + 3
+    const int nb = 8 * (wu / (KR / 16)) + lane / 4;  // columns 4 nb .. + 3
+    unsigned r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = 4 * kb + i;
+      r[i] = *reinterpret_cast<const unsigned*>(
+          b8 + row * BN + 16 * s8_chunk<BN>(row, nb / 4) + 4 * (nb % 4));
+    }
+    transpose4x4(r);
+    const int rot = (nb % 8) / 2;   // r[j] -> r[(j + rot) % 4]
+    if (rot & 1) {
+      const unsigned x = r[0];
+      r[0] = r[1];
+      r[1] = r[2];
+      r[2] = r[3];
+      r[3] = x;
+    }
+    if (rot & 2) {
+      unsigned x = r[0];
+      r[0] = r[2];
+      r[2] = x;
+      x = r[1];
+      r[1] = r[3];
+      r[3] = x;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<unsigned*>(bt + (4 * nb + (j + rot) % 4) * LDT +
+                                   4 * kb) = r[j];
+  }
 }
 
 // The main loop over a ring of kStages shared-memory stages, called by

@@ -61,13 +61,6 @@ struct Q8 : WarpTiles<BM> {
   static constexpr int kSmem = kStages * kStageBytes + kBN * kBT;
 };
 
-// the 16-byte chunk q of K row r of a weight stage sits at chunk
-// q ^ swz(r): the transpose pass's reads of four K words then fall in
-// distinct banks
-__device__ __forceinline__ int b_chunk(int r, int q) {
-  return q ^ ((r >> 1) & 6);
-}
-
 // one stage: a[m0 : m0+BM, k0 : k0+kBK] and b[k0 : k0+kBK, n0 : n0+kBN],
 // zero past M, N and kend.  VEC: 16-byte cp.async (K, N and kend are
 // multiples of 16, so each 16-byte piece is wholly inside or outside).
@@ -93,7 +86,7 @@ __device__ __forceinline__ void load_s8(uint8_t* a8, uint8_t* b8,
   for (int c = threadIdx.x; c < kBK * (kBN / 16); c += kTcThreads) {
     const int r = c / (kBN / 16), q = c % (kBN / 16);
     const int k = k0 + r, n = n0 + 16 * q;
-    uint8_t* dst = b8 + r * kBN + 16 * b_chunk(r, q);
+    uint8_t* dst = b8 + r * kBN + 16 * s8_chunk<kBN>(r, q);
     if (VEC) {
       const bool ok = k < kend && n < N;
       cp_async16(dst, ok ? b + (long long)k * N + n : b, ok ? 16 : 0);
@@ -102,61 +95,6 @@ __device__ __forceinline__ void load_s8(uint8_t* a8, uint8_t* b8,
       for (int j = 0; j < 16; ++j)
         dst[j] = (k < kend && n + j < N) ? b[(long long)k * N + n + j] : 0;
     }
-  }
-}
-
-// rows r[0..3] (4 bytes each) -> columns: r[j] byte i = old r[i] byte j
-__device__ __forceinline__ void transpose4x4(unsigned (&r)[4]) {
-  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140);
-  const unsigned t1 = __byte_perm(r[2], r[3], 0x5140);
-  const unsigned t2 = __byte_perm(r[0], r[1], 0x7362);
-  const unsigned t3 = __byte_perm(r[2], r[3], 0x7362);
-  r[0] = __byte_perm(t0, t1, 0x5410);
-  r[1] = __byte_perm(t0, t1, 0x7632);
-  r[2] = __byte_perm(t2, t3, 0x5410);
-  r[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// The weight stage (kBK K rows of kBN bytes, chunks swizzled) -> bt (kBN
-// rows of kBK bytes, row stride kBT).  A warp takes 4 K words x 8 N words
-// (4 x 4 bytes each) a round, two rounds a thread: its reads hit 32 banks
-// through the swizzle, and its writes because each thread starts its four
-// row writes at row (its N word % 8) / 2 of its block.
-__device__ __forceinline__ void transpose_b(const uint8_t* b8, uint8_t* bt) {
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-#pragma unroll
-  for (int it = 0; it < 2; ++it) {
-    const int wu = warp + 8 * it;
-    const int kb = 4 * (wu % 4) + lane % 4;   // K rows 4 kb .. 4 kb + 3
-    const int nb = 8 * (wu / 4) + lane / 4;   // columns 4 nb .. 4 nb + 3
-    unsigned r[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = 4 * kb + i;
-      r[i] = *reinterpret_cast<const unsigned*>(
-          b8 + row * kBN + 16 * b_chunk(row, nb / 4) + 4 * (nb % 4));
-    }
-    transpose4x4(r);
-    const int rot = (nb % 8) / 2;   // r[j] -> r[(j + rot) % 4]
-    if (rot & 1) {
-      const unsigned x = r[0];
-      r[0] = r[1];
-      r[1] = r[2];
-      r[2] = r[3];
-      r[3] = x;
-    }
-    if (rot & 2) {
-      unsigned x = r[0];
-      r[0] = r[2];
-      r[2] = x;
-      x = r[1];
-      r[1] = r[3];
-      r[3] = x;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<unsigned*>(bt + (4 * nb + (j + rot) % 4) * kBT +
-                                   4 * kb) = r[j];
   }
 }
 
@@ -194,7 +132,7 @@ qgemm_tc(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
                      k0 + t * kBK, kend);
   };
   auto compute = [&](int s) {
-    transpose_b(stage_b(s), bt);
+    transpose_s8<kBK, kBN, kBT>(stage_b(s), bt);
     __syncthreads();
     const uint8_t* a8 = stage_a(s);
 #pragma unroll

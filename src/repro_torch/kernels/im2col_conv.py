@@ -27,17 +27,16 @@ from repro_torch.kernels import (_build, check_operands, check_out_dtype,
 from repro_torch.kernels.ref import (conv_out_hw, normalize_padding,
                                      normalize_stride)
 
-TILE_PIXELS = 64       # output pixels per CTA of the int8 and depthwise convs
-MAX_ROWS = 8           # tallest pixel tile
-
-# the tensor-core kernel's constants (csrc/im2col_conv.cu: kConvRows,
-# kConvStages, kPlanePad, the weight rows' pads, kFoldSlack), checked
-# against the library's im2col_conv_tiles when it loads
+# the tensor-core kernels' constants (csrc/im2col_conv.cu: kConvRows,
+# kConvStages, kPlanePad, the weight rows' pads, kFoldSlack; the int8
+# kernel, csrc/quant_im2col_conv.cu, shares all but the weight pads and
+# adds kTilePad), checked against each library's *_tiles when it loads
 CONV_ROWS = 128        # output pixels (GeMM rows) per CTA
 CONV_STAGES = 4        # weight slices in flight
 PLANE_PAD = 16         # bytes after a patch position's channels
 B_PAD = {4: 4, 2: 8}   # elements after a weight row, by element size
-CONV_CHUNKS = (32, 16)  # channels per chunk, deepest first
+TILE_PAD = 16          # bytes after a row of the int8 kernel's K-major tile
+CONV_CHUNKS = {4: (32, 16), 2: (32, 16), 1: (64, 32)}  # deepest first
 CONV_COLS = (32, 64, 128)  # output channels per CTA
 FOLD_CK = 4            # a stem's chunk: C_in <= 4, the taps folded into K
 FOLD_SLACK = 64        # bytes after a folded plane (kFoldSlack)
@@ -47,17 +46,6 @@ MIN_SPLIT_STEPS = 4
 # what a box costs beyond its m16 row tiles, in m16 tiles: every step's
 # weight slice, B fragments and barriers, whatever the box's pixels
 BOX_COST = 4
-
-
-def pixel_tile(block_rows: int, block_cout: int) -> tuple[int, int, int]:
-    """``(th, tw, bco)``: the CTA's ``th x tw = 64`` output pixels, ``th``
-    the largest power of two not above ``min(block_rows, 8)``, and its
-    output channels, 64 or (``block_cout < 64``) 32.  The int8 conv
-    (``quant_im2col_conv``) and ``dwconv`` share this tile."""
-    th = 1
-    while th * 2 <= min(max(block_rows, 1), MAX_ROWS):
-        th *= 2
-    return th, TILE_PIXELS // th, 64 if block_cout >= 64 else 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,25 +73,65 @@ class ConvPlan:
         return self.boxes * self.co_tiles * self.ksplit
 
 
-def fold_rows(kw: int) -> int:
+def fold_rows(kw: int, elem_bytes: int = 4) -> int:
     """A folded conv's K a step (``ck == FOLD_CK``): one filter row's kw
-    taps x 4 channels, in whole k16 steps."""
-    return -(-kw * FOLD_CK // 16) * 16
+    taps x 4 channels, in whole k steps of the kernel's mma (k16 for
+    float operands, k32 for int8)."""
+    step = 32 if elem_bytes == 1 else 16
+    return -(-kw * FOLD_CK // step) * step
+
+
+def patch_cols(tw: int, kw: int, sw: int, elem_bytes: int = 4,
+               fold: bool = False) -> int:
+    """The columns a patch row holds.  The int8 kernel (unfolded) stores a
+    row's columns by phase, column C at ``(C % pw) * ceil(PW / pw) + C //
+    pw`` (``pw = min(sw, kw)``), so that the pixels of a strided conv sit
+    at consecutive positions; the row is then padded to a whole number of
+    phases."""
+    pw = min(sw, kw)
+    cols = (tw - 1) * pw + kw
+    if elem_bytes == 1 and not fold:
+        cols = -(-cols // pw) * pw
+    return cols
+
+
+def patch_buffers(cpc: int, steps: int, elem_bytes: int) -> int:
+    """The patch buffers the weight ring needs for ``steps`` steps a chunk.
+    Float: ``(CONV_STAGES - 1) // steps + 1``, since a chunk's patch is
+    split into planes at its first step.  Int8: every step of a chunk
+    reads its patch, so the next chunks' patches, loaded ``CONV_STAGES -
+    1`` steps ahead, need ``1 + ceil((CONV_STAGES - 1) / steps)``.  At
+    most ``cpc``."""
+    if elem_bytes == 1:
+        return min(cpc, 1 + -(-(CONV_STAGES - 1) // steps))
+    return min(cpc, (CONV_STAGES - 1) // steps + 1)
 
 
 def conv_smem(ni: int, th: int, tw: int, kh: int, kw: int, stride, ck: int,
               bn: int, nb: int, elem_bytes: int) -> int:
-    """Shared memory of one CTA (the kernel's ``conv_smem``): ``nb`` patch
-    buffers of ``ck`` channels per position, the ring of weight slices,
-    and the term planes (three for float32, one for bfloat16) with
-    ``PLANE_PAD`` bytes after each position -- or, folded (``ck ==
-    FOLD_CK``), ``fold_rows(kw)`` weight rows a slice and planes of 4
-    channels a position with ``FOLD_SLACK`` bytes after each."""
+    """Shared memory of one CTA, as the kernels count it.
+
+    Float (``im2col_conv.cu``): ``nb`` patch buffers of ``ck`` channels
+    per position, the ring of weight slices, and the term planes (three
+    for float32, one for bfloat16) with ``PLANE_PAD`` bytes after each
+    position -- or, folded (``ck == FOLD_CK``), ``fold_rows(kw)`` weight
+    rows a slice and planes of 4 channels a position with ``FOLD_SLACK``
+    bytes after each.
+    Int8 (``quant_im2col_conv.cu``): ``nb`` patch buffers that the
+    ldmatrix reads directly, ``ck + PLANE_PAD`` bytes a position (4 and
+    ``FOLD_SLACK`` after the buffer, folded), the ring of ``ck x bn``
+    weight slices and one K-major tile of ``bn`` rows of ``ck + TILE_PAD``
+    bytes."""
     sh, sw = normalize_stride(stride)
-    pos = ni * ((th - 1) * min(sh, kh) + kh) * ((tw - 1) * min(sw, kw) + kw)
-    terms = 3 if elem_bytes == 4 else 1
     fold = ck == FOLD_CK
-    rows = fold_rows(kw) if fold else ck
+    pos = ni * ((th - 1) * min(sh, kh) + kh) \
+        * patch_cols(tw, kw, sw, elem_bytes, fold)
+    rows = fold_rows(kw, elem_bytes) if fold else ck
+    if elem_bytes == 1:
+        buf = pos * 4 + FOLD_SLACK if fold else pos * (ck + PLANE_PAD)
+        return (nb * (-(-buf // 16) * 16) + CONV_STAGES * rows * bn
+                + bn * (rows + TILE_PAD))
+    terms = 3 if elem_bytes == 4 else 1
     plane = pos * 8 + FOLD_SLACK if fold else pos * (2 * ck + PLANE_PAD)
     return (-(-nb * pos * ck * elem_bytes // 16) * 16    # 16-byte aligned
             + CONV_STAGES * rows * (bn + B_PAD[elem_bytes]) * elem_bytes
@@ -114,7 +142,8 @@ def conv_plan(x_shape, w_shape, *, stride=1, padding=0, elem_bytes: int = 4,
               sms: int = 132, block_rows: int = 8, block_cout: int = 128,
               block_cin: int = 512) -> ConvPlan:
     """The kernel's tile for ``x (N, H, W, C_in)`` conv ``w (kh, kw, C_in,
-    C_out)``.
+    C_out)``: the float kernel's (``elem_bytes`` 4 or 2) or the int8
+    kernel's (``elem_bytes=1``, ``quant_im2col_conv``).
 
     The box: among every ``th x tw`` of at most ``CONV_ROWS`` output
     pixels with ``th <= block_rows`` -- and, where a whole map fits, ``ni``
@@ -126,17 +155,17 @@ def conv_plan(x_shape, w_shape, *, stride=1, padding=0, elem_bytes: int = 4,
       * ``block_cout`` -> ``bn``: the smallest of 32, 64, 128 output
         channels per CTA that covers ``min(C_out, block_cout)`` (128
         above);
-      * ``block_cin`` -> ``ck``: 32 channels per chunk, or 16 when
-        ``block_cin < 32`` or C_in <= 16 or 32 does not fit.  A stem of
-        at most 4 channels folds instead (``ck = FOLD_CK``): one step per
-        filter row, its kw taps x 4 channels in K (:func:`fold_rows`).
+      * ``block_cin`` -> ``ck``: the deeper of ``CONV_CHUNKS[elem_bytes]``
+        (32 channels float, 64 int8), or the shallower (16 / 32) when
+        ``block_cin`` is below the deeper, C_in is not above the
+        shallower or the deeper does not fit.  A stem of at most 4
+        channels folds instead (``ck = FOLD_CK``): one step per filter
+        row, its kw taps x 4 channels in K (:func:`fold_rows`).
     The channel chunks split over CTAs until the grid holds about two CTAs
-    for each of ``sms`` SMs (one chunk each at most), but no more f32
-    planes of the output than eight times the input and filter take, and
+    for each of ``sms`` SMs (one chunk each at most), but no more planes
+    of the output than eight times the input and filter elements, and
     each CTA keeps ``MIN_SPLIT_STEPS`` steps.
-    ``nb``: the patch buffers the ring needs, ``(CONV_STAGES - 1) // steps
-    + 1`` for ``kh * kw`` steps a chunk (``kh`` folded): four for a 1x1
-    conv, one from 2x2 up."""
+    ``nb``: the patch buffers the ring needs (:func:`patch_buffers`)."""
     N, H, W, C_in = x_shape
     kh, kw, _, C_out = w_shape
     st = normalize_stride(stride)
@@ -155,9 +184,11 @@ def _conv_plan(N, H, W, C_in, kh, kw, C_out, stride, H_out, W_out,
     bn = next(t for t in CONV_COLS if t >= min(C_out, block_cout)
               or t == CONV_COLS[-1])
     co_tiles = -(-C_out // bn)
+    deep, shallow = CONV_CHUNKS[elem_bytes]
     cks = (FOLD_CK,) if fold else (
-        CONV_CHUNKS if block_cin >= 32 and C_in > 16 else (16,))
-    # planes of N * H_out * W_out * C_out floats, eight times the operands
+        (deep, shallow) if block_cin >= deep and C_in > shallow
+        else (shallow,))
+    # planes of N * H_out * W_out * C_out, eight times the operands
     cap = max(1, 8 * (N * H * W * C_in + T * C_in * C_out)
               // (N * H_out * W_out * C_out))
     best = None
@@ -169,13 +200,13 @@ def _conv_plan(N, H, W, C_in, kh, kw, C_out, stride, H_out, W_out,
                                 else 1) + 1):
                 boxes = -(-N // ni) * -(-H_out // th) * -(-W_out // tw)
                 pos = ni * ((th - 1) * min(sh, kh) + kh) \
-                    * ((tw - 1) * min(sw, kw) + kw)
+                    * patch_cols(tw, kw, sw, elem_bytes, fold)
                 for ck in cks:
                     nch = -(-C_in // ck)
                     want = -(-2 * sms // (boxes * co_tiles))
                     most = max(1, nch * T // MIN_SPLIT_STEPS)
                     cpc = -(-nch // max(1, min(nch, want, cap, most)))
-                    nb = min(cpc, (CONV_STAGES - 1) // T + 1)
+                    nb = patch_buffers(cpc, T, elem_bytes)
                     smem = conv_smem(ni, th, tw, kh, kw, (sh, sw), ck, bn,
                                      nb, elem_bytes)
                     if smem > hw.SMEM_PER_BLOCK:
@@ -188,9 +219,10 @@ def _conv_plan(N, H, W, C_in, kh, kw, C_out, stride, H_out, W_out,
                                               co_tiles, smem))
                     break
     if best is None:
+        what = "quant_im2col_conv" if elem_bytes == 1 else "im2col_conv"
         raise ValueError(
-            f"im2col_conv: a {kh}x{kw} stride ({sh},{sw}) patch does not "
-            "fit one CTA's shared memory")
+            f"{what}: a {kh}x{kw} stride ({sh},{sw}) patch does not fit "
+            "one CTA's shared memory")
     return best[1]
 
 

@@ -8,7 +8,13 @@ on CPU tensors.  Tolerances, each with its reason:
   * ``int4_gemm`` / ``int4_gemv``: rtol 1e-5 and atol 1e-5 * max|out| --
     f32 sums in another order (the weight-only note of the int8 slice);
     the packing and unpacking themselves are EQUAL.
-  * ``_per_head_quantize``: EQUAL payloads and scales.
+  * ``_per_head_quantize``: EQUAL payloads and scales; the card kernel's
+    in-load formula (amax bits, ``max(amax, 1e-9) / 127``, the quotient
+    by a reciprocal and one FMA correction, ``rint``) EQUALS it too.
+  * the reordered int8 attention (every block's row maxes first, their
+    prefix max, then each block's pq and PV, chained in block order):
+    EQUAL to the plain version -- the same float32 operations on the same
+    values.
   * int8 attention: 1e-2 * max|out| -- an ulp of ``exp`` can flip one
     ``round(p * 127)`` by one step; the observed error stays far below
     (``test_observed_error_is_small`` holds it to 1e-5).
@@ -16,9 +22,12 @@ on CPU tensors.  Tolerances, each with its reason:
 The ``cuda``-marked tests hold each CUDA kernel against its plain version
 on the card and skip here.
 """
+from fractions import Fraction
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from _torch_parity import (cuda_device, jax_alias, np_of, rand,  # noqa: F401
                            to_jax, to_torch)
@@ -192,6 +201,72 @@ def _attn_case(seed, B, H, KvH, T, Skv, dh=16):
             rand(seed + 2, B, KvH, Skv, dh))
 
 
+# (id, B, H, KvH, T, S, block_q, block_kv, seed): Skv = S + T
+REORDER_CASES = [
+    ("ragged_last_block", 2, 4, 2, 3, 18, 4, 8, 1),   # 21 = 2 x 8 + 5
+    ("rep8_decode", 3, 16, 2, 1, 40, 1, 16, 2),
+    ("rep8_prefill", 2, 8, 1, 16, 37, 16, 16, 3),     # slot 0: lens 0
+    ("padded_rows", 2, 4, 1, 5, 11, 4, 4, 4),         # 5 rows, bq 4
+    ("one_block", 2, 2, 2, 2, 5, 2, 8, 5),
+]
+
+
+def _rn32(fr: Fraction) -> np.float32:
+    """The float32 nearest the rational ``fr`` (ties to even), exactly."""
+    f = np.float32(float(fr))
+    cands = (np.nextafter(f, np.float32(-np.inf)), f,
+             np.nextafter(f, np.float32(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - fr),
+                                     int(np.float32(c).view(np.uint32)) & 1))
+
+
+def _fma32(a, b, c) -> np.float32:
+    """a * b + c in float32, rounded once (the card's FMA)."""
+    return _rn32(Fraction(float(a)) * Fraction(float(b))
+                 + Fraction(float(c)))
+
+
+def _reordered_attention(q, k, v, mask, *, block_q, block_kv):
+    """``int8_flash_attention``'s function in the card kernel's order, in
+    float32 on the CPU with the plain version's shapes: all blocks' scores
+    and row maxes, the running max through block j as their prefix max,
+    then each block's pq, row sums and int32 PV against it, and last the
+    chain of l and acc through the blocks in order."""
+    B, H, Sq, dh = q.shape
+    KvH, Skv = k.shape[1], k.shape[2]
+    rep = H // KvH
+    bq, bkv = tfa._blocks(Sq, Skv, block_q, block_kv)
+    qq, kq, vq, mask, sqk, sv = tfa._prepare(q, k, v, mask, True, None)
+    q_pad, kv_pad = (-Sq) % bq, (-Skv) % bkv
+    qf = F.pad(qq.double(), (0, 0, 0, q_pad))
+    kf = F.pad(kq.double(), (0, 0, 0, kv_pad)).repeat_interleave(rep, dim=1)
+    vf = F.pad(vq.double(), (0, 0, 0, kv_pad)).repeat_interleave(rep, dim=1)
+    maskp = F.pad(mask, (0, kv_pad, 0, q_pad))[:, None]
+    s_qk = sqk[None, :, None, None]
+    s_v = (sv / 127.0).repeat_interleave(rep)[None, :, None, None]
+    blocks = range(0, Skv + kv_pad, bkv)
+    scores = [torch.where(
+        maskp[..., j:j + bkv],
+        torch.matmul(qf, kf[:, :, j:j + bkv].transpose(-1, -2)).float()
+        * s_qk, tfa._NEG_INF) for j in blocks]
+    m = [torch.full((B, H, Sq + q_pad, 1), tfa._NEG_INF)]
+    for s in scores:                     # prefix max of the block maxes
+        m.append(torch.maximum(m[-1], s.amax(dim=-1, keepdim=True)))
+    pq = [torch.round(torch.exp(s - m[i + 1]) * 127.0)
+          for i, s in enumerate(scores)]
+    lsum = [p.sum(dim=-1, keepdim=True) for p in pq]
+    pv = [torch.matmul(p.double(), vf[:, :, j:j + bkv]).float()
+          for p, j in zip(pq, blocks)]
+    l = torch.zeros_like(m[0])
+    acc = torch.zeros((B, H, Sq + q_pad, dh))
+    for i in range(len(scores)):         # the chain, in block order
+        corr = torch.exp(m[i] - m[i + 1])
+        l = l * corr + lsum[i] / 127.0
+        acc = acc * corr + pv[i] * s_v
+    out = acc / torch.clamp(l, min=1e-30)
+    return out[:, :, :Sq].to(q.dtype)
+
+
 class TestInt8Attention:
     def test_per_head_quantize_equals_reference(self):
         x = rand(7, 2, 3, 11, 16) * 3
@@ -272,6 +347,79 @@ class TestInt8Attention:
         assert (qq.shape, kq.shape, sqk.shape, sv.shape) == \
             ((2, 4, 3, 16), (2, 4, 6, 16), (4,), (4,))
 
+    @pytest.mark.parametrize("dtype", [np.float32, "bf16"])
+    def test_in_load_quantization_equals_per_head_quantize(self, dtype):
+        # the card kernel's formula in float32, each FMA rounded once
+        # (exactly, through Fraction): a head's amax as the largest |x|
+        # bit pattern (non-negative floats order as integers), scale =
+        # max(amax, 1e-9) / 127, inv = RN(1 / scale), y = RN(x * inv), q
+        # = RN(RN(x - scale * y) * inv + y), rint(q); and sqk = (sq *
+        # sk[g]) * sm_scale.  Head 0 holds values next to every
+        # half-integer step, where rint tells RN(x / scale) from a
+        # quotient one ulp off.
+        x = rand(11, 3, 4, 32, 16)
+        amax = np.float32(3.0)
+        sc0 = np.maximum(amax, np.float32(1e-9)) / np.float32(127)
+        near = np.float32(np.arange(-127, 127) + 0.5) * sc0
+        near = np.concatenate([np.nextafter(near, np.float32(d * np.inf))
+                               for d in (-1, 1)] + [near])
+        head0 = np.clip(x[:, 0].reshape(-1), -2.5, 2.5)
+        head0[:near.size] = near
+        head0[near.size] = amax
+        x[:, 0] = head0.reshape(x[:, 0].shape)
+        x = to_torch(x)
+        if dtype == "bf16":
+            x = x.bfloat16()
+        xf = x.float().numpy()
+        bits = np.abs(xf).view(np.uint32).max(axis=(0, 2, 3))
+        amax = bits.view(np.float32)
+        assert np.array_equal(amax, np.abs(xf).max(axis=(0, 2, 3)))
+        scale = np.maximum(amax, np.float32(1e-9)) / np.float32(127)
+        inv = np.float32(1) / scale
+        q8 = np.empty(xf.shape, np.float32)
+        for h in range(xf.shape[1]):
+            for idx, xv in np.ndenumerate(xf[:, h]):
+                y = np.float32(xv * inv[h])
+                q = _fma32(_fma32(-scale[h], y, xv), inv[h], y)
+                q8[idx[0], h, idx[1], idx[2]] = np.rint(q)
+        assert np.abs(q8).max() <= 127
+        scale = scale[None, :, None, None]
+        qt_, st = tfa._per_head_quantize(x)
+        np.testing.assert_array_equal(q8.astype(np.int8), np_of(qt_))
+        np.testing.assert_array_equal(scale[0, :, 0, 0], np_of(st)[:, 0])
+        # the combined score scale of the wrapper's plain path
+        k = to_torch(rand(12, 3, 2, 32, 16))
+        _, _, _, _, sqk, _ = tfa._prepare(x.float(), k, k, None, True, 0.3)
+        sk = np.maximum(np.abs(k.numpy()).max(axis=(0, 2, 3)),
+                        np.float32(1e-9)) / np.float32(127)
+        want = (scale[0, :, 0, 0] * sk[np.arange(4) // 2]) * np.float32(0.3)
+        np.testing.assert_array_equal(want.astype(np.float32), np_of(sqk))
+
+    @pytest.mark.parametrize("case", REORDER_CASES, ids=[
+        c[0] for c in REORDER_CASES])
+    def test_reordered_attention_equals_plain(self, case):
+        # the card kernel's order: all kv blocks' row maxes at once, the
+        # running max as their prefix max, each block's pq / row sums / PV
+        # from it, then l and acc chained in block order -- bit for bit
+        # the plain version's in-order loop, and the reference within
+        # ATTN_TOL
+        _, B, H, KvH, T, S, bq, bkv, seed = case
+        q, k, v = _attn_case(seed, B, H, KvH, T, S + T)
+        mask = _engine_mask(B, T, S, seed)
+        kw = dict(block_q=bq, block_kv=bkv)
+        got = _reordered_attention(to_torch(q), to_torch(k), to_torch(v),
+                                   torch.from_numpy(mask), **kw)
+        want = tfa.int8_flash_attention_plain(
+            to_torch(q), to_torch(k), to_torch(v),
+            mask=torch.from_numpy(mask), **kw)
+        assert torch.equal(got, want)
+        ref = jfa.int8_flash_attention_fwd(
+            to_jax(q), to_jax(k), to_jax(v), mask=to_jax(mask),
+            interpret=True, **kw)
+        scale = float(np.abs(np_of(ref)).max())
+        np.testing.assert_allclose(np_of(got), np_of(ref), rtol=0,
+                                   atol=ATTN_TOL * scale)
+
     def test_rejects_bad_mask(self):
         q, k, v = (to_torch(x) for x in _attn_case(1, 1, 2, 1, 3, 5))
         with pytest.raises(ValueError, match="mask"):
@@ -348,3 +496,62 @@ class TestOnCard:
         want = tfa.int8_flash_attention_plain(q, k, v, **kw)
         assert float((got - want).abs().max()) <= \
             ATTN_TOL * float(want.abs().max())
+
+    @pytest.mark.parametrize("T", [1, 16])
+    def test_int8_attention_engine_layout(self, cuda_device, T):
+        # Yi-9B's call at 8 slots: q (B, T, H, dh) float32 and the bf16
+        # cache (B, S + T, KvH, dh) passed transposed, as models/layers.py
+        # passes them; the kernels read the strides as they are
+        B, H, KvH, S, dh = 8, 32, 4, 512, 128
+        g = torch.Generator(device=cuda_device).manual_seed(10 + T)
+        q = torch.randn(B, T, H, dh, generator=g, device=cuda_device)
+        k, v = (torch.randn(B, S + T, KvH, dh, generator=g,
+                            device=cuda_device).bfloat16()
+                for _ in range(2))
+        mask = torch.from_numpy(_engine_mask(B, T, S, T)).to(cuda_device)
+        args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        kw = dict(mask=mask, scale=dh ** -0.5, block_q=T,
+                  block_kv=min(128, S + T))
+        n0 = tfa.int8_flash_attention_fwd.launches
+        got = tfa.int8_flash_attention_fwd(*args, **kw)
+        assert tfa.int8_flash_attention_fwd.launches == n0 + 1
+        want = tfa.int8_flash_attention_plain(*args, **kw)
+        assert got.dtype == torch.float32 and got.shape == (B, H, T, dh)
+        assert float((got - want).abs().max()) <= \
+            ATTN_TOL * float(want.abs().max())
+        # a bfloat16 q gives a bfloat16 output, rounded once
+        got16 = tfa.int8_flash_attention_fwd(args[0].bfloat16(), *args[1:],
+                                             **kw)
+        want16 = tfa.int8_flash_attention_plain(args[0].bfloat16(),
+                                                *args[1:], **kw)
+        assert got16.dtype == torch.bfloat16
+        assert float((got16.float() - want16.float()).abs().max()) <= \
+            ATTN_TOL * float(want16.float().abs().max())
+
+    @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+    def test_amax_scales_are_exact(self, cuda_device, kv_dtype):
+        # the first launch's per-head amax gives _per_head_quantize's
+        # scales bit for bit, and the launch pair leaves the workspace zero
+        g = torch.Generator(device=cuda_device).manual_seed(3)
+        q = torch.randn(4, 8, 16, 128, generator=g, device=cuda_device) * 3
+        k, v = (torch.randn(4, 2, 300, 128, generator=g, device=cuda_device)
+                .to(kv_dtype) for _ in range(2))
+        amax = tfa.head_amax(q, k, v)
+        for x, a in zip((q, k, v), amax):
+            _, want = tfa._per_head_quantize(x)
+            assert torch.equal(torch.clamp(a, min=tfa._EPS) / 127.0,
+                               want[:, 0])
+        tfa.int8_flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        assert all(int(ws.abs().sum()) == 0
+                   for ws in tfa._attn_scratch.values())
+
+    def test_no_plain_version_on_the_card(self, cuda_device, monkeypatch):
+        def refuse(*a, **k):
+            raise AssertionError("the plain version ran on CUDA tensors")
+        monkeypatch.setattr(tfa, "int8_flash_attention_plain", refuse)
+        monkeypatch.setattr(tfa, "_per_head_quantize", refuse)
+        q = torch.randn(2, 4, 3, 64, device=cuda_device)
+        k, v = (torch.randn(2, 2, 40, 64, device=cuda_device)
+                for _ in range(2))
+        assert tfa.int8_flash_attention_fwd(q, k, v).isfinite().all()

@@ -50,6 +50,7 @@ from repro_torch.configs import get_vision_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core import hw, mapper
 from repro_torch.core.dataflows import GemmShape
+from repro_torch.kernels import im2col_conv as tconv
 from repro_torch.kernels import quant_gemm as tqk
 from repro_torch.vision import blocks, engine, models
 
@@ -69,11 +70,6 @@ def _i8(seed: int, *shape: int) -> np.ndarray:
 def _scale(seed: int, n: int) -> np.ndarray:
     return np.random.default_rng(seed).uniform(
         1e-3, 2e-2, n).astype(np.float32)
-
-
-def lib_name(symbol: str) -> str:
-    """The source file that defines a C entry point."""
-    return {"quant_im2col_conv_s8": "quant_im2col_conv"}.get(symbol, symbol)
 
 
 def _equal(got, want):
@@ -216,6 +212,138 @@ QCONV_CASES = [
 
 GEMM_CASES = [(17, 33, 29), (8, 64, 40), (32, 96, 130), (1, 5, 3)]
 
+# every conv of the calibrated ResNet50 and MobileNetV1 at batch 8 (x, w,
+# stride, padding)
+INT8_CONVS = [
+    ((8, 224, 224, 3), (7, 7, 3, 64), 2, 3),
+    ((8, 56, 56, 64), (1, 1, 64, 64), 1, 0),
+    ((8, 56, 56, 64), (3, 3, 64, 64), 1, 1),
+    ((8, 56, 56, 64), (1, 1, 64, 256), 1, 0),
+    ((8, 56, 56, 256), (1, 1, 256, 64), 1, 0),
+    ((8, 56, 56, 256), (1, 1, 256, 128), 1, 0),
+    ((8, 56, 56, 128), (3, 3, 128, 128), 2, 1),
+    ((8, 56, 56, 256), (1, 1, 256, 512), 2, 0),
+    ((8, 28, 28, 128), (1, 1, 128, 512), 1, 0),
+    ((8, 28, 28, 512), (1, 1, 512, 128), 1, 0),
+    ((8, 28, 28, 128), (3, 3, 128, 128), 1, 1),
+    ((8, 28, 28, 512), (1, 1, 512, 256), 1, 0),
+    ((8, 28, 28, 256), (3, 3, 256, 256), 2, 1),
+    ((8, 28, 28, 512), (1, 1, 512, 1024), 2, 0),
+    ((8, 14, 14, 256), (1, 1, 256, 1024), 1, 0),
+    ((8, 14, 14, 1024), (1, 1, 1024, 256), 1, 0),
+    ((8, 14, 14, 256), (3, 3, 256, 256), 1, 1),
+    ((8, 14, 14, 1024), (1, 1, 1024, 512), 1, 0),
+    ((8, 14, 14, 512), (3, 3, 512, 512), 2, 1),
+    ((8, 14, 14, 1024), (1, 1, 1024, 2048), 2, 0),
+    ((8, 7, 7, 512), (1, 1, 512, 2048), 1, 0),
+    ((8, 7, 7, 2048), (1, 1, 2048, 512), 1, 0),
+    ((8, 7, 7, 512), (3, 3, 512, 512), 1, 1),
+    ((8, 224, 224, 3), (3, 3, 3, 32), 2, ((0, 1), (0, 1))),  # MobileNetV1
+    ((8, 112, 112, 32), (1, 1, 32, 64), 1, 0),
+    ((8, 56, 56, 64), (1, 1, 64, 128), 1, 0),
+    ((8, 56, 56, 128), (1, 1, 128, 128), 1, 0),
+    ((8, 28, 28, 128), (1, 1, 128, 256), 1, 0),
+    ((8, 28, 28, 256), (1, 1, 256, 256), 1, 0),
+    ((8, 14, 14, 256), (1, 1, 256, 512), 1, 0),
+    ((8, 14, 14, 512), (1, 1, 512, 512), 1, 0),
+    ((8, 7, 7, 512), (1, 1, 512, 1024), 1, 0),
+    ((8, 7, 7, 1024), (1, 1, 1024, 1024), 1, 0),
+]
+
+# reduced geometries of the same classes for the tile model, with the
+# planner kwargs that reach a path (N, H, W, C_in, C_out, k, stride,
+# padding, plan kwargs); sms=1 keeps the chunks whole, a large sms splits
+QCONV_MODEL_CASES = [
+    (2, 16, 16, 3, 16, 7, 2, 3, {}),                  # 7x7/2 stem, folded
+    (2, 15, 15, 3, 8, 3, 2, ((0, 1), (0, 1)), {}),    # 3x3/2, C_in = 3
+    (2, 9, 9, 64, 40, 3, 1, 1, {}),                   # 3x3/1
+    (1, 11, 9, 32, 16, 3, 2, 1, {}),                  # 3x3/2 by phase
+    (2, 8, 8, 40, 24, 1, 2, 0, {"sms": 1}),           # 1x1/2, ragged C_in
+    (2, 7, 7, 512, 48, 1, 1, 0, {"sms": 132}),        # split planes
+    (1, 6, 7, 96, 8, 3, 1, 1, {"sms": 132, "block_cin": 32}),
+    (3, 5, 5, 36, 8, 3, (2, 1), ((0, 1), (2, 0)), {}),
+]
+
+
+def _qconv_by_tiles(x, w, scale, stride, padding, **plan_kw):
+    """``quant_im2col_conv``'s function computed the way its kernel walks
+    it (``csrc/quant_im2col_conv.cu``), in int64 on the CPU: the plan's
+    boxes, each chunk's patch with the patch rows' columns stored by phase
+    (slot ``(C % pw) * PWq + C // pw``) and zeros outside the image, every
+    tap's A rows read at the pixel's base slot plus the tap's offset (a
+    folded stem: 4 channels a slot, K = 4 dw + channel from the pixel's
+    slot on), each CTA's chunks into its own plane, the planes summed and
+    the epilogue applied.  Returns the output and the plan."""
+    N, H, W, C_in = x.shape
+    kh, kw, _, C_out = w.shape
+    sh, sw = tconv.normalize_stride(stride)
+    (pt, pb), (pl, pr) = tconv.normalize_padding(padding)
+    Ho, Wo = tconv.conv_out_hw(H, W, kh, kw, (sh, sw), ((pt, pb), (pl, pr)))
+    p = tconv.conv_plan(tuple(x.shape), tuple(w.shape), stride=(sh, sw),
+                        padding=((pt, pb), (pl, pr)), elem_bytes=1,
+                        **plan_kw)
+    fold = p.ck == tconv.FOLD_CK
+    ph, pw = min(sh, kh), min(sw, kw)
+    PH, PW = (p.th - 1) * ph + kh, (p.tw - 1) * pw + kw
+    PWq = PW if fold else -(-PW // pw)
+    PWs = tconv.patch_cols(p.tw, kw, sw, 1, fold)
+    assert PWs == (PW if fold else PWq * pw)
+    T = kh if fold else kh * kw
+    nch = -(-C_in // p.ck)
+    xi, wi = x.long(), w.long()
+    planes = torch.zeros(p.ksplit, N, Ho, Wo, C_out, dtype=torch.int64)
+    for n0 in range(0, N, p.ni):
+        for oh0 in range(0, Ho, p.th):
+            for ow0 in range(0, Wo, p.tw):
+                img, R, slot = np.meshgrid(np.arange(p.ni), np.arange(PH),
+                                           np.arange(PWs), indexing="ij")
+                C = slot if fold else (slot % PWq) * pw + slot // PWq
+                nn_ = n0 + img
+                ih = oh0 * sh - pt + (R // ph) * sh + R % ph
+                iw = ow0 * sw - pl + (C // pw) * sw + C % pw
+                ok = (C < PW) & (nn_ < N) & (ih >= 0) & (ih < H) \
+                    & (iw >= 0) & (iw < W)
+                patch = torch.zeros(p.ni * PH * PWs, C_in, dtype=torch.int64)
+                idx = np.flatnonzero(ok.ravel())
+                patch[idx] = xi[nn_.ravel()[idx], ih.ravel()[idx],
+                                iw.ravel()[idx]]
+                px = np.arange(p.ni * p.th * p.tw)
+                pi, pr_, pc = (px // (p.th * p.tw), px // p.tw % p.th,
+                               px % p.tw)
+                base = (pi * PH + pr_ * ph) * PWs + pc * (pw if fold else 1)
+                on, oh, ow = n0 + pi, oh0 + pr_, ow0 + pc
+                keep = (on < N) & (oh < Ho) & (ow < Wo)
+                for z in range(p.ksplit):
+                    acc = torch.zeros(len(px), C_out, dtype=torch.int64)
+                    for c in range(z * p.cpc, min(nch, (z + 1) * p.cpc)):
+                        c0 = c * p.ck
+                        for tap in range(T):
+                            if fold:
+                                # K row r = 4 dw + channel, the slot's word
+                                rows_k = tconv.fold_rows(kw, 1)
+                                flat = torch.zeros(len(patch) * 4 + 64,
+                                                   dtype=torch.int64)
+                                flat[:len(patch) * 4].view(-1, 4)[
+                                    :, :C_in] = patch
+                                wf = torch.zeros(rows_k, C_out,
+                                                 dtype=torch.int64)
+                                for r in range(min(rows_k, 4 * kw)):
+                                    if r % 4 < C_in:
+                                        wf[r] = wi[tap, r // 4, r % 4]
+                                at = torch.from_numpy(
+                                    (base + tap * PWs) * 4)[:, None] \
+                                    + torch.arange(rows_k)
+                                acc += flat[at] @ wf
+                                continue
+                            dh, dw = divmod(tap, kw)
+                            toff = dh * PWs + (dw % pw) * PWq + dw // pw
+                            assert (base + toff).max() < len(patch)
+                            acc += patch[base + toff, c0:c0 + p.ck] \
+                                @ wi[dh, dw, c0:c0 + p.ck]
+                    planes[z, on[keep], oh[keep], ow[keep]] = acc[keep]
+    out = (planes.sum(0).float() * scale.float())
+    return out, p
+
 
 class TestKernels:
     @pytest.mark.parametrize("m,k,n", GEMM_CASES)
@@ -330,34 +458,101 @@ class TestKernels:
     @pytest.mark.parametrize("module,entry,symbol", [
         (tqk, "_quant_gemm_entry", "quant_gemm"),
         (tqk, "_wq_gemv_entry", "wq_gemv"),
-        (tqk, "_qconv_entry", "quant_im2col_conv_s8")])
+        (tqk, "_qconv_entry", "quant_im2col_conv")])
     def test_ctypes_signature_matches_the_source(self, monkeypatch, module,
                                                  entry, symbol):
         # ctypes passes what argtypes says: one entry per C parameter
         lib = types.SimpleNamespace(**{symbol: types.SimpleNamespace()})
         monkeypatch.setattr(tqk._build, "load", lambda name: lib)
         fn = getattr(module, entry)()
-        src = "".join((tqk._build.CSRC / f"{lib_name(symbol)}.cu")
+        src = "".join((tqk._build.CSRC / f"{symbol}.cu")
                       .read_text().split(f'extern "C" int {symbol}(')[1:])
         params = src.split(")")[0].split(",")
         assert len(fn.argtypes) == len(params)
         ptrs = sum("*" in p or "cudaStream_t" in p for p in params)
         assert fn.argtypes.count(ctypes.c_void_p) == ptrs
 
-    def test_qconv_tiling(self):
-        # the stem's 3 channels take one zero-padded word
-        assert tqk.qconv_tiling(3, 7, 7, 2)[2:4] == (4, 64)
-        # 4x the float kernel's channel chunk
-        assert tqk.qconv_tiling(512, 3, 3, 1)[2] == 128
-        assert tqk.qconv_tiling(256, 1, 1, 1, block_cout=32,
-                                block_cin=16)[2:4] == (16, 32)
-        for cin, k, s in ((3, 7, 2), (64, 3, 1), (128, 3, 2), (256, 1, 2),
-                          (2048, 1, 1), (512, 3, 2)):
-            th, tw, ck, _, smem = tqk.qconv_tiling(cin, k, k, s)
-            assert ck % 4 == 0 and th * tw == 64
-            assert smem <= hw.SMEM_STATIC_LIMIT
-        _, _, ck, _, smem = tqk.qconv_tiling(512, 31, 31, 4)
-        assert ck % 4 == 0 and ck < 128 and smem <= hw.SMEM_PER_BLOCK
+    @pytest.mark.parametrize("geom", INT8_CONVS,
+                             ids=[f"g{i}" for i in range(len(INT8_CONVS))])
+    def test_qconv_tiling(self, geom):
+        # the int8 conv's tile (im2col_conv.conv_plan, elem_bytes=1) at
+        # every calibrated ResNet50 / MobileNetV1 conv at batch 8 and 32:
+        # within the 227 KB a CTA can have (the kernel's own count), the
+        # channels in whole k32 chunks (64 or 32) covered once, the stems
+        # folded, and the patch buffers the ring needs
+        x, w, stride, pad = geom
+        for batch in (8, 32):
+            xb = (batch, *x[1:])
+            p = tconv.conv_plan(xb, w, stride=stride, padding=pad,
+                                elem_bytes=1)
+            assert p.smem_bytes <= hw.SMEM_PER_BLOCK
+            assert p.smem_bytes == tconv.conv_smem(
+                p.ni, p.th, p.tw, w[0], w[1], stride, p.ck, p.bn, p.nb, 1)
+            if x[3] <= tconv.FOLD_CK:
+                assert p.ck == tconv.FOLD_CK and p.ksplit == 1
+                assert tconv.fold_rows(w[1], 1) == 32   # one k32 step a row
+                steps = w[0]
+            else:
+                assert p.ck in (32, 64) and (p.ck == 64 or x[3] <= 32)
+                steps = w[0] * w[1]
+            nch = -(-x[3] // p.ck)
+            assert (p.ksplit - 1) * p.cpc < nch <= p.ksplit * p.cpc
+            # every chunk's taps read its patch: the patches loaded ahead
+            # by the ring never land in a buffer still being read
+            assert p.nb == min(p.cpc, 1 + -(-(tconv.CONV_STAGES - 1)
+                                            // steps))
+            assert p.nb == p.cpc or (p.nb - 1) * steps >= \
+                tconv.CONV_STAGES - 1
+
+    def test_int8_plan_splits_where_boxes_underfill(self):
+        # stage 5 at batch 8: 4 boxes of two 7x7 maps x 4 channel tiles,
+        # so the 32 chunks of 64 channels split over CTAs, as far as each
+        # keeps MIN_SPLIT_STEPS steps
+        p = tconv.conv_plan((8, 7, 7, 2048), (1, 1, 2048, 512),
+                            elem_bytes=1)
+        assert (p.ni, p.th, p.tw, p.ck, p.bn) == (2, 7, 7, 64, 128)
+        assert (p.cpc, p.ksplit) == (tconv.MIN_SPLIT_STEPS, 8)
+        # stage 1 fills the card with boxes alone
+        p = tconv.conv_plan((8, 56, 56, 64), (3, 3, 64, 64), padding=1,
+                            elem_bytes=1)
+        assert p.ksplit == 1 and p.ctas >= 132
+        # the tiling kwargs map as for the float kernel
+        p = tconv.conv_plan((8, 56, 56, 256), (1, 1, 256, 256),
+                            elem_bytes=1, block_cout=32, block_cin=32)
+        assert (p.ck, p.bn) == (32, 32)
+
+    def test_strided_patch_rows_are_stored_by_phase(self):
+        # 3x3 stride 2: the columns of a patch row by phase, padded to
+        # whole phases; 1x1 stride 2 reads only its pixels (pw = 1)
+        assert tconv.patch_cols(14, 3, 2, elem_bytes=1) == 30
+        assert tconv.patch_cols(14, 3, 2, elem_bytes=4) == 29
+        assert tconv.patch_cols(16, 1, 2, elem_bytes=1) == 16
+        assert tconv.patch_cols(16, 7, 2, elem_bytes=1, fold=True) == 37
+
+    @pytest.mark.parametrize("case", QCONV_MODEL_CASES, ids=[
+        f"c{i}" for i in range(len(QCONV_MODEL_CASES))])
+    def test_tile_model_equals_plain(self, case):
+        # the kernel's K walk run on the CPU in int64: the plan's boxes,
+        # the patch stored by phase with its zero border, the folded stem,
+        # each CTA's chunks x taps into its own plane, the planes summed,
+        # then the epilogue -- bit for bit the plain version
+        n, h, w_, cin, cout, k, stride, padding, plan_kw = case
+        x = to_torch(_i8(40, n, h, w_, cin))
+        w = to_torch(_i8(41, k, k, cin, cout))
+        s = to_torch(_scale(42, cout))
+        got, plan = _qconv_by_tiles(x, w, s, stride, padding, **plan_kw)
+        want = tqk.quant_im2col_conv_plain(x, w, s, stride=stride,
+                                           padding=padding)
+        assert torch.equal(got, want)
+        if plan_kw.get("sms", 0) > 1:
+            assert plan.ksplit > 1     # the split planes are exercised
+
+    def test_fold_rows_match_the_source(self):
+        src = (tqk._build.CSRC / "quant_im2col_conv.cu").read_text()
+        assert "return (kw * 4 + 31) / 32 * 32;" in src
+        assert "ck != 32 && ck != 64 && !(ck == 4 && C_in <= 4)" in src
+        assert tconv.CONV_CHUNKS[1] == (64, 32)
+        assert "1 + (kConvStages - 1 + T - 1) / T" in src
 
 
 # ---------------------------------------------------------------------------
@@ -885,6 +1080,39 @@ class TestOnCard:
         want = tqk.quant_im2col_conv_plain(x, w, s, stride=stride,
                                            padding=padding)
         assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("geom", INT8_CONVS,
+                             ids=[f"g{i}" for i in range(len(INT8_CONVS))])
+    def test_quant_im2col_conv_at_the_engines_geometries(self, cuda_device,
+                                                         geom):
+        # every calibrated ResNet50 / MobileNetV1 conv at batch 8: bit for
+        # bit, float32 and bfloat16 (rounded once in the epilogue or the
+        # split-K sum)
+        x_shape, w_shape, stride, pad = geom
+        g = torch.Generator(device=cuda_device).manual_seed(len(INT8_CONVS))
+        x = torch.randint(-127, 128, x_shape, dtype=torch.int8,
+                          device=cuda_device, generator=g)
+        w = torch.randint(-127, 128, w_shape, dtype=torch.int8,
+                          device=cuda_device, generator=g)
+        s = torch.rand(w_shape[3], device=cuda_device, generator=g) * 1e-3
+        for out in (torch.float32, torch.bfloat16):
+            n0 = tqk.quant_im2col_conv.launches
+            got = tqk.quant_im2col_conv(x, w, s, stride=stride, padding=pad,
+                                        out_dtype=out)
+            assert tqk.quant_im2col_conv.launches == n0 + 1
+            want = tqk.quant_im2col_conv_plain(x, w, s, stride=stride,
+                                               padding=pad, out_dtype=out)
+            assert got.dtype == out and torch.equal(got, want)
+
+    def test_no_plain_version_on_the_card(self, cuda_device, monkeypatch):
+        def refuse(*a, **k):
+            raise AssertionError("the plain version ran on CUDA tensors")
+        monkeypatch.setattr(tqk, "quant_im2col_conv_plain", refuse)
+        x = torch.ones(2, 9, 9, 64, dtype=torch.int8, device=cuda_device)
+        w = torch.ones(3, 3, 64, 32, dtype=torch.int8, device=cuda_device)
+        got = tqk.quant_im2col_conv(x, w, torch.ones(32, device=cuda_device),
+                                    padding=1)
+        assert float(got.max()) == 9 * 64
 
     def test_int8_forward_matches_cpu(self, cuda_device):
         cfg = get_vision_config("resnet50", reduced=True)
