@@ -156,15 +156,6 @@ class TestInt4:
             tqk.int4_gemm_plain(a, packed_t, s, k_size=21), want,
             rtol=1e-5, atol=1e-5 * float(want.abs().max()))
 
-    @pytest.mark.parametrize("K,N,sms,block_k", [
-        (4096, 4096, 132, 512), (11008, 512, 132, 512), (33, 70, 132, 7),
-        (4097, 64000, 132, 512), (15, 300, 132, 512)])
-    def test_split_k_chunks_start_on_whole_bytes(self, K, N, sms, block_k):
-        kc, ksplit = tqk.int4_split_k(K, N, sms, block_k)
-        assert kc * ksplit >= K and kc * (ksplit - 1) < K
-        assert ksplit == 1 or kc % 2 == 0
-        assert kc <= max(2, block_k + block_k % 2)
-
     def test_rejects_bad_packing(self):
         a = torch.zeros(4, 9)
         with pytest.raises(ValueError, match="ceil"):
@@ -461,6 +452,40 @@ class TestOnCard:
         want = tqk.int4_gemv_plain(x, w, s, k_size=K)
         torch.testing.assert_close(got, want, rtol=WO_TOL,
                                    atol=WO_TOL * float(want.abs().max()))
+
+    # the shapes the tensor-core tile makes hard: odd K (a zero high
+    # nibble), N off the 16-byte copy and the 128-column block, K split
+    # over CTAs, every batch the n8 columns hold
+    @pytest.mark.parametrize("B", [1, 5, 8])
+    @pytest.mark.parametrize("K,N", [(97, 129), (4097, 1000), (11008, 512),
+                                     (33, 70), (4096, 4104)])
+    def test_int4_gemv_ragged(self, cuda_device, B, K, N):
+        g = torch.Generator(device=cuda_device).manual_seed(B * K + N)
+        q = torch.randint(-8, 8, (K, N), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        w = tqt.pack_int4(q, axis=0).contiguous()
+        x = torch.randn(B, K, generator=g, device=cuda_device)
+        s = torch.rand(N, generator=g, device=cuda_device) + 0.1
+        n0 = tqk.int4_gemv.launches
+        got = tqk.int4_gemv(x, w, s, k_size=K)
+        assert tqk.int4_gemv.launches == n0 + 1
+        want = tqk.int4_gemv_plain(x, w, s, k_size=K)
+        torch.testing.assert_close(got, want, rtol=WO_TOL,
+                                   atol=WO_TOL * float(want.abs().max()))
+
+    @pytest.mark.parametrize("K,N", [(11008, 4096), (4096, 512), (97, 129)])
+    def test_int4_gemv_integer_operands_are_exact(self, cuda_device, K, N):
+        # sums below 2^24: every output exact in float32, so a nibble read
+        # twice or skipped, or a chunk starting mid-byte, shows
+        g = torch.Generator(device=cuda_device).manual_seed(K + N)
+        x = torch.randint(-8, 9, (8, K), device=cuda_device,
+                          generator=g).float()
+        q = torch.randint(-8, 8, (K, N), generator=g, device=cuda_device,
+                          dtype=torch.int8)
+        w = tqt.pack_int4(q, axis=0).contiguous()
+        got = tqk.int4_gemv(x, w, torch.ones(N, device=cuda_device),
+                            k_size=K)
+        assert torch.equal(got, (x.double() @ q.double()).float())
 
     @pytest.mark.parametrize("M", [1, 8, 128])
     def test_int4_bf16(self, cuda_device, M):
