@@ -81,3 +81,27 @@ def sm_count(index: int) -> int:
 def is_bf16(dtype: torch.dtype) -> int:
     """1 for bfloat16, 0 for float32: the dtype flags of the C entries."""
     return int(dtype == torch.bfloat16)
+
+
+# per (device, stream): the streaming GEMVs' split-K planes (float32) and
+# their column blocks' arrival counters (int32, zero between launches: the
+# last CTA of a block resets its own), grown as calls need more; gemv,
+# wq_gemv and int4_gemv share them (a stream runs its launches in order)
+_split_k_scratch: dict = {}
+
+
+def split_k_workspace(dev: torch.device, stream: int, planes: int,
+                      blocks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """At least ``planes`` float32 plane values and ``blocks`` zeroed int32
+    counters for a launch on ``stream`` of ``dev``; allocated only when a
+    call needs more than the stream's workspace holds."""
+    key = (dev.index, stream)
+    ws = _split_k_scratch.get(key)
+    if ws is None or ws[0].numel() < planes or ws[1].numel() < blocks:
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(planes, have[0]), dtype=torch.float32,
+                          device=dev),
+              torch.zeros(max(blocks, have[1]), dtype=torch.int32,
+                          device=dev))
+        _split_k_scratch[key] = ws
+    return ws

@@ -1,9 +1,9 @@
-// The second pass of every split-K kernel: out = (the sum of the partial
-// planes, in plane order) * scale[col] where a column scale is given,
-// rounded once to the output type.  The order is fixed and there are no
-// atomics, so the result is deterministic.  Planes are float32, or int32
-// (the int8 GeMM's), which are summed in int32 -- exactly -- and cast to
-// float32 once before the scale, as the reference's epilogue
+// The second pass of the split-K GeMMs and convs: out = (the sum of the
+// partial planes, in plane order) * scale[col] where a column scale is
+// given, rounded once to the output type.  The order is fixed and there
+// are no atomics, so the result is deterministic.  Planes are float32, or
+// int32 (the int8 GeMM's), which are summed in int32 -- exactly -- and
+// cast to float32 once before the scale, as the reference's epilogue
 // acc.astype(f32) * scale.
 #pragma once
 
@@ -72,4 +72,48 @@ void launch_split_k_sum(const TP* partial, const float* scale, TO* out,
                         cudaStream_t stream) {
   split_k_sum<Tag, TO, TP><<<(unsigned)((MN + 511) / 512), 256, 0,
                              stream>>>(partial, scale, out, N, MN, planes);
+}
+
+// The streaming GEMVs' split-K sum inside their own launch (gemv.cu,
+// wq_gemv.cuh).  Every CTA of a column block has written its float32
+// partial sums to its plane of `planes` (`plane` floats apart) before it
+// calls this; every thread of the CTA calls it.  The CTA counts its
+// arrival on `counter`, its column block's (zero between launches), after
+// a __threadfence that publishes its plane; the last CTA to arrive sums
+// the planes, in plane order, at each of this thread's kPer offsets `at`
+// that are `live`, into `sum`, sets the counter back to zero and returns
+// true.  The order is fixed and no atomic touches an output, so the
+// result does not depend on which CTA came last.  Every other CTA returns
+// false.  `flag`: one int of the CTA's shared memory.
+template <int kPer>
+__device__ __forceinline__ bool split_k_last_sum(
+    const float* __restrict__ planes, long long plane, int ksplit,
+    int* __restrict__ counter, int* flag, const long long (&at)[kPer],
+    const bool (&live)[kPer], float (&sum)[kPer]) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == ksplit - 1;
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  constexpr int kPlanes = 8;   // planes' loads in flight before their adds
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) sum[e] = 0.f;
+  for (int p0 = 0; p0 < ksplit; p0 += kPlanes) {
+    float pv[kPlanes][kPer];
+#pragma unroll
+    for (int q = 0; q < kPlanes; ++q)
+#pragma unroll
+      for (int e = 0; e < kPer; ++e)
+        pv[q][e] = p0 + q < ksplit && live[e]
+                       ? __ldcg(planes + (long long)(p0 + q) * plane + at[e])
+                       : 0.f;
+#pragma unroll
+    for (int q = 0; q < kPlanes; ++q)
+#pragma unroll
+      for (int e = 0; e < kPer; ++e)
+        if (p0 + q < ksplit) sum[e] += pv[q][e];
+  }
+  if (threadIdx.x == 0) *counter = 0;  // ready for the next launch
+  return true;
 }

@@ -52,10 +52,11 @@
 //     sizes it; a packed chunk starts on a whole byte row): each writes its
 //     partial sums to a float32 plane, and the last CTA of a column block
 //     to arrive -- a __threadfence and a counter per column block, which
-//     that CTA sets back to zero -- sums the planes in plane order, so the
-//     result does not depend on which CTA came last and no atomic touches
-//     the output.  The column scale is applied once, after the whole K
-//     sum, as the reference applies it after its whole K loop.
+//     that CTA sets back to zero (split_k.cuh, split_k_last_sum, shared
+//     with gemv.cu) -- sums the planes in plane order, so the result does
+//     not depend on which CTA came last and no atomic touches the output.
+//     The column scale is applied once, after the whole K sum, as the
+//     reference applies it after its whole K loop.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -64,6 +65,7 @@
 #include "cp_async.cuh"
 #include "dtypes.cuh"
 #include "f32_terms.cuh"
+#include "split_k.cuh"
 
 namespace wq {
 
@@ -426,38 +428,21 @@ wq_gemv_mma(const void* __restrict__ x, int x_mode,
   if (ksplit == 1) return;
 
   // the last CTA of this column block to arrive sums the planes in order
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) *last = atomicAdd(counters + cx, 1) == ksplit - 1;
-  __syncthreads();
-  if (!*last) return;
-  __threadfence();
-  constexpr int kPlanes = 8;   // planes' loads in flight before their adds
-  float sum[kPer];
+  long long at[kPer];
+  bool live[kPer];
 #pragma unroll
-  for (int e = 0; e < kPer; ++e) sum[e] = 0.f;
-  for (int p0 = 0; p0 < ksplit; p0 += kPlanes) {
-    float pv[kPlanes][kPer];
-#pragma unroll
-    for (int q = 0; q < kPlanes; ++q)
-#pragma unroll
-      for (int e = 0; e < kPer; ++e)
-        pv[q][e] = p0 + q < ksplit && bo[e] < B && co[e] < N
-                       ? __ldcg(planes + ((long long)(p0 + q) * B + bo[e]) *
-                                             N + co[e])
-                       : 0.f;
-#pragma unroll
-    for (int q = 0; q < kPlanes; ++q)
-#pragma unroll
-      for (int e = 0; e < kPer; ++e)
-        if (p0 + q < ksplit) sum[e] += pv[q][e];
+  for (int e = 0; e < kPer; ++e) {
+    at[e] = (long long)bo[e] * N + co[e];
+    live[e] = bo[e] < B && co[e] < N;
   }
+  float sum[kPer];
+  if (!split_k_last_sum<kPer>(planes, (long long)B * N, ksplit, counters + cx,
+                              last, at, live, sum))
+    return;
 #pragma unroll
   for (int e = 0; e < kPer; ++e)
-    if (bo[e] < B && co[e] < N)
-      store_out(out, out_bf16, (long long)bo[e] * N + co[e],
-                __fmul_rn(sum[e], scale[co[e]]));
-  if (tid == 0) counters[cx] = 0;  // ready for the next launch
+    if (live[e])
+      store_out(out, out_bf16, at[e], __fmul_rn(sum[e], scale[co[e]]));
 }
 
 template <typename F, int V>

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from _torch_parity import cuda_device  # noqa: F401
+from repro_torch import kernels as tk
 from repro_torch.core import hw
 from repro_torch.kernels import _build
 from repro_torch.kernels import quant_gemm as tqk
@@ -284,17 +285,19 @@ class TestPlan:
         assert tqk.wq_vec(N, address) == want
 
     def test_workspace_grows_and_keeps_counters_zero(self):
+        # the streaming GEMVs' per-stream workspace (kernels/__init__.py,
+        # shared with gemv)
         dev = torch.device("cpu")
-        tqk._wq_scratch.pop((dev.index, 1), None)
-        planes, counters = tqk._wq_workspace(dev, 1, 100, 4)
+        tk._split_k_scratch.pop((dev.index, 1), None)
+        planes, counters = tk.split_k_workspace(dev, 1, 100, 4)
         assert planes.numel() >= 100 and counters.numel() >= 4
         assert not counters.any() and counters.dtype == torch.int32
-        again = tqk._wq_workspace(dev, 1, 50, 2)
+        again = tk.split_k_workspace(dev, 1, 50, 2)
         assert again[0] is planes and again[1] is counters
-        bigger = tqk._wq_workspace(dev, 1, 400, 3)
+        bigger = tk.split_k_workspace(dev, 1, 400, 3)
         assert bigger[0].numel() >= 400 and bigger[1].numel() >= 4
         assert not bigger[1].any()
-        tqk._wq_scratch.pop((dev.index, 1))
+        tk._split_k_scratch.pop((dev.index, 1))
 
     def test_constants_match_the_source(self):
         # the design lives in wq_gemv.cuh, which both GEMVs include
@@ -507,7 +510,7 @@ class TestOnCard:
             assert torch.equal(tqk.wq_gemv(x, w, s), first)
         torch.cuda.synchronize()
         stream = torch.cuda.current_stream(cuda_device).cuda_stream
-        _, counters = tqk._wq_scratch[(cuda_device.index
-                                       or torch.cuda.current_device(),
-                                       stream)]
+        _, counters = tk._split_k_scratch[(cuda_device.index
+                                           or torch.cuda.current_device(),
+                                           stream)]
         assert not counters.any()

@@ -4,11 +4,14 @@ every K split its planner considers, beside the split the planner picks;
 or, with ``--wq``, ``wq_gemv`` at Yi-9B's decode shapes (M = 8, int8
 weights) and the ResNet50 head for K splits of 1 to 48 chunks; or, with
 ``--int4``, ``int4_gemv`` at the same shapes (nibble-packed weights,
-chunks of whole 128-row stages):
+chunks of whole 128-row stages); or, with ``--gemv``, the float ``gemv``
+at the same decode shapes and the ResNet50 and MobileNetV1 heads (M = 8,
+float32 and bfloat16 operands) for K splits of 1 to 64 chunks:
 
     python3 tools/split_sweep.py        # from the root, on a CUDA card
     python3 tools/split_sweep.py --wq
     python3 tools/split_sweep.py --int4
+    python3 tools/split_sweep.py --gemv
 
 For each shape (``lm_projections`` of ``chip_smoke.py``, the mapper's
 blocking) and each chunk count the planner's loop in
@@ -18,9 +21,11 @@ from ``chip_smoke.profiler_ms`` (``torch.profiler``, mean of 10 calls, a
 128 MB buffer zeroed before each, the zeroing left out), so the wrapper's
 host work does not enter it.  Every result is held within KERNEL_REL_TOL of the plain version.
 Prints one JSON line per shape and writes ``chiprun_out/split_sweep.json``
-(``split_sweep_wq.json``, ``split_sweep_int4.json``).
-``quant_gemm.WQ_CHUNK_COST`` and ``WQ_PLANE_COST`` are fitted to the
-``--wq`` times.  Exits non-zero without a CUDA device.
+(``split_sweep_wq.json``, ``split_sweep_int4.json``,
+``split_sweep_gemv.json``).  ``quant_gemm.WQ_CHUNK_COST`` and
+``WQ_PLANE_COST`` are fitted to the ``--wq`` times, ``gemv``'s
+``GEMV_SM_OVERLAP``, ``GEMV_CTA_COST`` and ``GEMV_PLANE_COST`` to the
+``--gemv`` times.  Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -94,11 +99,78 @@ def sweep_wq(card: str, int4: bool = False) -> list:
     return rows
 
 
+def sweep_gemv() -> list:
+    """``gemv``'s device time at each decode shape and both vision heads,
+    float32 and bfloat16, for K splits of 1 to 64 chunks (multiples of 8
+    rows), beside the planner's pick, each result within KERNEL_REL_TOL of
+    the plain version."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gemv as tg
+    from repro_torch.kernels import sm_count
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    flush = cs.new_flush()
+    sms = sm_count(dev.index)
+    planner = tg.gemv_plan
+    shapes = dict(cs.lm_projections(get_config(cs.LM_NAME)))
+    shapes[(2048, 1000)] = 0                      # the ResNet50 head
+    shapes[(1024, 1000)] = 0                      # the MobileNetV1 head
+    rows = []
+    try:
+        for (K, N), count in shapes.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(cs.LM_SLOTS, K, device=dev,
+                                generator=gen).to(dtype)
+                w = torch.randn(K, N, device=dev, generator=gen).to(dtype)
+                want = tg.gemv_plain(x, w, torch.float32)
+                fn = lambda: tg.gemv(x, w, out_dtype=torch.float32)  # noqa
+                eb = x.element_size()
+                row = {"shape": [cs.LM_SLOTS, K, N], "per_step": count,
+                       "dtype": str(dtype)[6:],
+                       "planner": list(planner(K, N, sms, eb)),
+                       "ms_by_chunks": {}}
+                seen = set()
+                for ks in sorted({1, 2, 3, 4, 5, 6, 8, 11, 12, 16, 19, 24, 33,
+                                  48, 64, row["planner"][1]}):
+                    kc = -(-K // ks)
+                    if ks > 1:
+                        kc = -(-kc // tg.GEMV_CHUNK_ROWS) * tg.GEMV_CHUNK_ROWS
+                    split = (kc, -(-K // kc))
+                    if split[1] in seen:
+                        continue
+                    seen.add(split[1])
+                    tg.gemv_plan = lambda *_, s=split: s
+                    err = float((fn() - want).abs().max())
+                    if err > cs.KERNEL_REL_TOL * float(want.abs().max()):
+                        raise RuntimeError(f"{row['shape']} in {split[1]} "
+                                           f"chunks: off by {err}")
+                    row["ms_by_chunks"][split[1]] = cs.profiler_ms(fn, flush)
+                tg.gemv_plan = planner
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+                del x, w, want
+    finally:
+        tg.gemv_plan = planner
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("split_sweep: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--gemv"]:
+        card = cs.card_line()
+        print(card, flush=True)
+        rows = sweep_gemv()
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "split_sweep_gemv.json").write_text(
+            json.dumps({"card": card, "rows": rows}, indent=1))
+        return 0
     if sys.argv[1:] in (["--wq"], ["--int4"]):
         card = cs.card_line()
         print(card, flush=True)
