@@ -15,6 +15,11 @@ whose stages hold each layer's weights stacked along a leading layer axis
 stacked leaf, a stacked quantized weight included (int4: ``q`` of shape
 ``(L, ceil(K/2), N)``, ``scale`` ``(L, 1, N)``, ``pack_size`` kept), into
 the port's one module per layer.
+
+:func:`caches_from_jax` carries the reference's LM caches across the same
+way (dense slot caches, or paged ones with their pools, scale pools,
+counters and page table), so that one step of both packages can start
+from the same cache state.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as LL
 from repro_torch.models import transformer as TT
 from repro_torch.quant.qtensor import QuantizedTensor
+from repro_torch.serve import kvcache as KV
 from repro_torch.vision import blocks as B
 from repro_torch.vision import models as M
 
@@ -135,3 +141,43 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig, *,
     return TT.LM(cfg, _tensor(tree["embed"]), stages,
                  LL.RMSNorm(_tensor(tree["final_norm"]["scale"])),
                  _weight(tree["lm_head"])).to(dev)
+
+
+def _array(a) -> torch.Tensor:
+    """A numpy array as a tensor of its dtype; bfloat16 and e4m3 arrays
+    (numpy's ``ml_dtypes``) through their bits."""
+    a = np.asarray(a)
+    bits = {"bfloat16": np.uint16, "float8_e4m3fn": np.uint8}.get(
+        a.dtype.name)
+    if bits is None:
+        return torch.from_numpy(a.copy())
+    return torch.from_numpy(a.view(bits).copy()).view(
+        getattr(torch, a.dtype.name))
+
+
+def caches_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
+    """The port's LM caches holding the reference's ``tree`` (its caches
+    pytree of numpy arrays, each stage's layer leaves stacked along a
+    leading layer axis), on ``device`` (None: CUDA).  A paged tree (one
+    with a ``page_table``) keeps its pools, scale pools, counters and
+    table; each pool gains the port's zero sink page at its end."""
+    TT.check_ported(cfg)
+    dev = resolve_device(device)
+
+    def leaf(name: str, a) -> torch.Tensor:
+        t = _array(a)
+        if name.endswith(KV.PAGED_LEAF_SUFFIXES):
+            t = torch.cat([t, torch.zeros_like(t[:1])])
+        return t.to(dev)
+
+    caches = {
+        "pos": _array(tree["pos"]).to(dev),
+        "stages": [{"layers": [
+            {"attn": {name: leaf(name, a[i])
+                      for name, a in c_s["layers"]["attn"].items()}}
+            for i in range(s.n_layers)]}
+            for c_s, s in zip(tree["stages"], cfg.stages, strict=True)],
+    }
+    if KV.PAGE_TABLE_KEY in tree:
+        caches[KV.PAGE_TABLE_KEY] = _array(tree[KV.PAGE_TABLE_KEY]).to(dev)
+    return caches

@@ -67,7 +67,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
     assert {"repro_torch.configs.base", "repro_torch.configs.yi_9b",
             "repro_torch.kernels.flash_attention",
             "repro_torch.models.layers", "repro_torch.models.transformer",
-            "repro_torch.serve.engine"} <= set(res["names"])
+            "repro_torch.serve.engine", "repro_torch.serve.kvcache",
+            "repro_torch.serve.step_graph"} <= set(res["names"])
     assert "repro_torch.kernels.zero_gate_gemm" in res["names"]
 
 

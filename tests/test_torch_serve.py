@@ -190,6 +190,17 @@ def test_unported_knobs_raise(yi, kw):
         assert len(out[0]) == 2
         assert eng.last_stats["decoupled_prefill_tokens"] == 3
         return
+    if kw == dict(paged=True):
+        # ported: the paged KV cache (tests/test_torch_paged.py holds its
+        # tokens and its allocator against the reference's)
+        eng = E.ServeEngine(model, cfg, batch_slots=2, max_len=MAX_LEN,
+                            prefill_chunk=CHUNK, device="cpu", **kw)
+        assert eng.paged.pool_pages == 2 * (MAX_LEN // 16)
+        out = eng.generate([E.Request(prompt=[5, 6, 7], max_new_tokens=2)])
+        assert len(out[0]) == 2
+        assert eng.last_stats["pool"]["pages"] == eng.paged.pool_pages
+        assert eng.pool.invariant_errors() == []
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         E.ServeEngine(model, cfg, device="cpu", **kw)
 
