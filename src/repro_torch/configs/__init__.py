@@ -1,16 +1,16 @@
 """Architecture configs of the port.
 
 ``get_config(name)`` resolves the LM ids the port serves as the
-reference does: ``get_config("yi-9b")``, or ``get_config("yi-9b",
-reduced=True)`` for the CPU test variant.  An LM config is added with the
-slice that first runs it.  ``get_vision_config(name)`` resolves the
+reference does: ``get_config("yi-9b")`` or ``get_config("mixtral-8x7b")``,
+or with ``reduced=True`` for the CPU test variant.  An LM config is added
+with the slice that first runs it.  ``get_vision_config(name)`` resolves the
 conv-net zoo: ResNet50, MobileNetV1, YOLOv3 and YOLOv3-tiny.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("yi-9b",)
+ARCH_IDS = ("yi-9b", "mixtral-8x7b")
 
 VISION_IDS = (
     "resnet50",

@@ -3,8 +3,9 @@
 Port of ``repro.configs.base``: the same fields with the same defaults, so
 a config compares field for field with the reference's; the parameter and
 compute dtypes resolve to torch dtypes.  Every architecture's config is
-mirrored, but the port's model runs only the dense GQA stage
-(``repro_torch.models.transformer`` raises for the others).
+mirrored; the port's model runs the dense and MoE stages with GQA
+attention, sliding windows included (``repro_torch.models.transformer``
+raises for MLA, SSM and hybrid stages, frontends and tied embeddings).
 """
 from __future__ import annotations
 

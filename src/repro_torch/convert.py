@@ -14,12 +14,15 @@ whose stages hold each layer's weights stacked along a leading layer axis
 (the reference scans over them): it slices layer ``i`` out of every
 stacked leaf, a stacked quantized weight included (int4: ``q`` of shape
 ``(L, ceil(K/2), N)``, ``scale`` ``(L, 1, N)``, ``pack_size`` kept), into
-the port's one module per layer.
+the port's one module per layer.  An MoE block's ``router (L, d, E)`` and
+expert weights ``(L, E, d, f)`` (quantized ones too: ``q`` ``(L, E,
+ceil(d/2), f)`` in int4, ``scale`` ``(L, E, 1, f)``) are sliced the same
+way, with its ``shared`` MLP where the config has one.
 
 :func:`caches_from_jax` carries the reference's LM caches across the same
-way (dense slot caches, or paged ones with their pools, scale pools,
-counters and page table), so that one step of both packages can start
-from the same cache state.
+way (dense slot caches, a windowed layer's rolling buffer among them, or
+paged ones with their pools, scale pools, counters and page table), so
+that one step of both packages can start from the same cache state.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as LL
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TT
 from repro_torch.quant.qtensor import QuantizedTensor
 from repro_torch.serve import kvcache as KV
@@ -116,17 +120,26 @@ def _layer(a, i: int):
     return np.asarray(a)[i]
 
 
-def _lm_block(layers: dict, i: int, cfg: ModelConfig) -> TT.Block:
+def _lm_block(layers: dict, i: int, cfg: ModelConfig,
+              stage) -> TT.Block:
     attn, ffn = layers["attn"], layers["ffn"]
     w = lambda d, k: _weight(_layer(d[k], i))               # noqa: E731
+    mlp = lambda d: LL.MLP(w(d, "w_gate"), w(d, "w_up"),    # noqa: E731
+                           w(d, "w_down"))
     biases = tuple(_tensor(_layer(attn[k], i)) for k in ("bq", "bk", "bv")) \
         if cfg.qkv_bias else ()
+    if stage.block == "moe":
+        ffn_mod = MOE.MoE(_tensor(_layer(ffn["router"], i)),
+                          w(ffn, "w_gate"), w(ffn, "w_up"), w(ffn, "w_down"),
+                          mlp(ffn["shared"]) if "shared" in ffn else None)
+    else:
+        ffn_mod = mlp(ffn)
     return TT.Block(
         LL.RMSNorm(_tensor(_layer(layers["ln1"]["scale"], i))),
         LL.Attention(w(attn, "wq"), w(attn, "wk"), w(attn, "wv"),
                      w(attn, "wo"), *biases),
         LL.RMSNorm(_tensor(_layer(layers["ln2"]["scale"], i))),
-        LL.MLP(w(ffn, "w_gate"), w(ffn, "w_up"), w(ffn, "w_down")))
+        ffn_mod)
 
 
 def lm_params_from_jax(tree: dict, cfg: ModelConfig, *,
@@ -135,7 +148,7 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig, *,
     reference's LM pytree of numpy arrays), on ``device`` (None: CUDA)."""
     TT.check_ported(cfg)
     dev = resolve_device(device)
-    stages = [TT.Stage([_lm_block(p_s["layers"], i, cfg)
+    stages = [TT.Stage([_lm_block(p_s["layers"], i, cfg, s)
                         for i in range(s.n_layers)])
               for p_s, s in zip(tree["stages"], cfg.stages, strict=True)]
     return TT.LM(cfg, _tensor(tree["embed"]), stages,

@@ -19,7 +19,10 @@ kernels or the dequantized float path per call.
     (:data:`LM_WEIGHT_KEYS`), per output column with ``reduce_axes=(-2,)``
     as the reference: on the port's per-layer modules that is one scale
     per layer and column, what the reference gets from its stacked
-    ``(L, K, N)`` weights.  A weight-only model (int8, packed int4 or fp8).
+    ``(L, K, N)`` weights, and for an MoE block's ``(E, d, f)`` expert
+    weights one per expert and column (int4 packed along -2, ``d``).  The
+    MoE router stays float.  A weight-only model (int8, packed int4 or
+    fp8).
   * :func:`quantize_lm` -- that, then :func:`lm_calibration_forward` (the
     uncached forward and the head) run eagerly over calibration batches in
     a calibration scope, and one activation scale per projection written
@@ -44,7 +47,7 @@ from repro_torch.quant.qtensor import QuantizedWeight, quantize_weight
 # swapping them for quantized weights is transparent to the model code
 LM_WEIGHT_KEYS = frozenset({
     "wq", "wk", "wv", "wo",              # GQA attention
-    "w_gate", "w_up", "w_down",          # SwiGLU MLP
+    "w_gate", "w_up", "w_down",          # SwiGLU MLP and MoE experts
     "lm_head",                           # untied logits projection
 })
 

@@ -238,7 +238,9 @@ class ServeEngine:
 
     Scheduler knobs:
       batch_slots   : number of concurrent request lanes
-      prefill_chunk : prompt tokens teacher-forced per step
+      prefill_chunk : prompt tokens teacher-forced per step, clamped to
+                      the smallest sliding window (and max_len) so that a
+                      chunk never overruns a rolling cache buffer
       queue_policy  : 'fifo' (arrival order) or 'sjf' (shortest prompt
                       first)
       quantized     : True / "int8" = weight-only int8, "int4" = packed
@@ -351,7 +353,10 @@ class ServeEngine:
         self.cfg = cfg
         self.batch_slots = batch_slots
         self.max_len = max_len
-        self.prefill_chunk = max(1, prefill_chunk)
+        # a chunk never overruns a rolling window buffer: at most the
+        # smallest window (or max_len, where that is smaller)
+        windows = [min(s.window, max_len) for s in cfg.stages if s.window]
+        self.prefill_chunk = max(1, min([prefill_chunk, *windows]))
         self.queue_policy = queue_policy
         self.temperature = temperature
         self.decouple_prefill = bool(decouple_prefill)

@@ -90,7 +90,8 @@ def _close_logits(got, want, tol, rows=None):
 
 class TestConfigs:
     def test_same_ids(self):
-        assert ARCH_IDS == ("yi-9b",) and set(ARCH_IDS) <= set(J_ARCH_IDS)
+        assert ARCH_IDS == ("yi-9b", "mixtral-8x7b") \
+            and set(ARCH_IDS) <= set(J_ARCH_IDS)
 
     @pytest.mark.parametrize("reduced", [False, True])
     @pytest.mark.parametrize("name", ARCH_IDS)
@@ -122,6 +123,18 @@ class TestConfigs:
     def test_unported_architectures_raise(self, name):
         cfg = dataclasses.replace(get_config("yi-9b", reduced=True),
                                   **UNPORTED[name])
+        if name in ("moe", "window"):
+            # ported: MoE blocks and sliding windows (tests/test_torch_moe.py
+            # and tests/test_torch_window.py hold them against the
+            # reference)
+            if name == "moe":
+                cfg = dataclasses.replace(cfg, n_experts=4, top_k=2,
+                                          d_ff_expert=64)
+            T.init_params(cfg, generator=torch.Generator(), device="cpu")
+            caches = T.init_caches(cfg, 1, 16, device="cpu")
+            assert caches["stages"][0]["layers"][0]["attn"]["k"].shape[1] \
+                == (8 if name == "window" else 16)
+            return
         with pytest.raises(NotImplementedError, match="not ported yet"):
             T.init_params(cfg, generator=torch.Generator(), device="cpu")
         with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -524,15 +537,23 @@ class TestSteps:
         x = torch.zeros(1, 2, cfg.d_model)
         # ported: uncached attention is the blocked flash_attention and
         # returns no cache (tests/test_torch_lm_calib.py holds it against
-        # the reference); a sliding window still raises
+        # the reference), and so is a sliding window (a window of 1: each
+        # token sees only itself, so the output is its own value's
+        # projection; tests/test_torch_window.py holds windows against the
+        # reference); MLA still raises
         out, cache = L.attention_fwd(model.stages[0].layers[0].attn, x, cfg,
                                      positions=torch.arange(2))
         assert cache is None and out.shape == x.shape
+        attn = model.stages[0].layers[0].attn
+        xr = torch.from_numpy(rand(9, 1, 2, cfg.d_model))
+        out, _ = L.attention_fwd(attn, xr, cfg, positions=torch.arange(2),
+                                 window=1)
+        v = torch.einsum("bsd,de->bse", xr, attn.wv).reshape(
+            1, 2, cfg.n_kv, 1, cfg.d_head).expand(
+            -1, -1, -1, cfg.n_heads // cfg.n_kv, -1).reshape(1, 2, -1)
+        assert_close(out, torch.einsum("bse,ed->bsd", v, attn.wo))
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            L.attention_fwd(model.stages[0].layers[0].attn, x, cfg,
-                            positions=torch.arange(2), window=1)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.check_ported(dataclasses.replace(cfg, **UNPORTED["moe"]))
+            T.check_ported(dataclasses.replace(cfg, **UNPORTED["mla"]))
         with pytest.raises(NotImplementedError, match="tied embeddings"):
             T.check_ported(dataclasses.replace(cfg, tie_embeddings=True))
 

@@ -105,9 +105,15 @@ class TestFlashAttention:
                                    atol=BF16_TOL * float(np.abs(want).max()))
 
     def test_windows_raise(self):
-        x = torch.zeros(1, 4, 2, 8)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            L.flash_attention(x, x, x, window=2)
+        # ported: sliding windows no longer raise; a window of 2 gives the
+        # reference's blocked attention (tests/test_torch_window.py holds
+        # the wider cases)
+        q, k, v = rand(11, 1, 12, 2, 8), rand(12, 1, 12, 2, 8), \
+            rand(13, 1, 12, 2, 8)
+        kw = dict(window=2, block_q=4, block_kv=4)
+        want = JL.flash_attention(*(to_jax(x) for x in (q, k, v)), **kw)
+        assert_close(L.flash_attention(*(to_torch(x) for x in (q, k, v)),
+                                       **kw), want)
 
     def test_uncached_attention_fwd_matches_reference(self, yi):
         cfg_j, params, cfg, model = yi

@@ -70,6 +70,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
             "repro_torch.serve.engine", "repro_torch.serve.kvcache",
             "repro_torch.serve.step_graph"} <= set(res["names"])
     assert "repro_torch.kernels.zero_gate_gemm" in res["names"]
+    assert {"repro_torch.models.moe",
+            "repro_torch.configs.mixtral_8x7b"} <= set(res["names"])
 
 
 def _imports(path: Path) -> set[str]:
