@@ -23,6 +23,12 @@ way, with its ``shared`` MLP where the config has one.
 way (dense slot caches, a windowed layer's rolling buffer among them, or
 paged ones with their pools, scale pools, counters and page table), so
 that one step of both packages can start from the same cache state.
+
+:func:`train_state_from_jax` carries a reference training state across:
+its parameters as :func:`lm_params_from_jax` carries them, the AdamW
+moments ``mu`` / ``nu`` (and a gradient-compression residual) leaf for
+leaf under the port's parameter names, and the step counters, so that a
+train step of both packages can start from one state.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TT
 from repro_torch.quant.qtensor import QuantizedTensor
 from repro_torch.serve import kvcache as KV
+from repro_torch.train.train_step import trainable
 from repro_torch.vision import blocks as B
 from repro_torch.vision import models as M
 
@@ -194,3 +201,27 @@ def caches_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
     if KV.PAGE_TABLE_KEY in tree:
         caches[KV.PAGE_TABLE_KEY] = _array(tree[KV.PAGE_TABLE_KEY]).to(dev)
     return caches
+
+
+def train_state_from_jax(state: dict, cfg: ModelConfig, *,
+                         device=None) -> dict:
+    """The port's training state (``train.train_step``'s layout) holding
+    the reference's ``state`` (its training state pytree of numpy arrays),
+    on ``device`` (None: CUDA).  Each params-shaped tree (the moments, a
+    compression residual) is keyed by the port's parameter names: it goes
+    through :func:`lm_params_from_jax` as parameters would."""
+    dev = resolve_device(device)
+
+    def named(tree: dict) -> dict:
+        lm = lm_params_from_jax(tree, cfg, device=dev)
+        return {n: p.detach() for n, p in lm.named_parameters()}
+
+    out = {"params": trainable(lm_params_from_jax(state["params"], cfg,
+                                                  device=dev)),
+           "opt": {"mu": named(state["opt"]["mu"]),
+                   "nu": named(state["opt"]["nu"]),
+                   "step": _array(state["opt"]["step"]).to(dev)},
+           "step": _array(state["step"]).to(dev)}
+    if "ef_error" in state:
+        out["ef_error"] = named(state["ef_error"])
+    return out

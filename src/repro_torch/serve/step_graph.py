@@ -23,7 +23,12 @@ On the card:
   (``layers._rope_freqs_on``) and the per-(device, stream) workspaces
   (``kernels.split_k_workspace``, the int8 attention's amax slots).  The
   warm-up runs are real steps: they write the caches, which the engine
-  clears once its steps are registered.
+  clears once its steps are registered.  Python's automatic garbage
+  collection is off inside a capture (and left as the caller had it
+  after): a collection there can free a CUDA graph that a caller's cyclic
+  garbage holds (an engine kept by a closure or a test's traceback), a
+  CUDA call that invalidates the capture.  An engine itself holds no
+  reference cycle: dropped, it frees its graphs, pool and caches at once.
 - Workspaces: the kernels key them by the stream they launch on, which for
   a graph is the side stream, and every graph is replayed on that same
   stream: :meth:`run` makes the side stream wait for the caller's current
@@ -46,6 +51,7 @@ On the card:
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Any, Callable, Hashable
 
@@ -117,11 +123,18 @@ class StepGraphs:
             before = [f.launches for f in counters]
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph()
+            # no automatic collection inside the capture: freeing a graph
+            # that cyclic garbage holds there invalidates the capture
+            # (``torch.cuda.graph`` collects explicitly before it begins)
+            collecting = gc.isenabled()
+            gc.disable()
             try:
                 with torch.cuda.graph(graph, pool=self.pool,
                                       stream=self.stream):
                     out = step.fn(*step.args)
             finally:
+                if collecting:
+                    gc.enable()
                 moved = [f.launches - n for f, n in zip(counters, before)]
                 for f, n in zip(counters, before):
                     f.launches = n

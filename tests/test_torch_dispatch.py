@@ -195,8 +195,8 @@ class TestPolicy:
                                     "zero_gate"]
         assert registry.meta("gemm").backend == "cuda"
         assert registry.meta("torch_conv2d").backend == "torch"
-        assert registry.meta("gemv").vjp == "no_vjp"
-        assert registry.meta("zero_gate").vjp == "no_vjp"
+        assert registry.meta("gemv").vjp == "custom"
+        assert registry.meta("zero_gate").vjp == "custom"
         with pytest.raises(KeyError):
             registry.get("xla_einsum")
 

@@ -140,7 +140,7 @@ class TestDepthwise:
 
     def test_registry_contracts(self):
         m = registry.meta("dwconv")
-        assert (m.accum, m.vjp, m.backend) == ("float32", "no_vjp", "cuda")
+        assert (m.accum, m.vjp, m.backend) == ("float32", "custom", "cuda")
         m = registry.meta("torch_dwconv")
         assert (m.accum, m.vjp, m.backend) == ("native", "native", "torch")
 

@@ -72,6 +72,11 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
     assert "repro_torch.kernels.zero_gate_gemm" in res["names"]
     assert {"repro_torch.models.moe",
             "repro_torch.configs.mixtral_8x7b"} <= set(res["names"])
+    assert {"repro_torch.optim.adamw", "repro_torch.optim.compression",
+            "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.checkpointing",
+            "repro_torch.train.train_step", "repro_torch.train.trainer",
+            "repro_torch.launch.train"} <= set(res["names"])
 
 
 def _imports(path: Path) -> set[str]:
@@ -146,6 +151,32 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
         lm_params_from_jax(tree, cfg)
     assert len(lm_params_from_jax(tree, cfg, device="cpu")
                .stages[0].layers) == 2
+
+
+def test_train_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config("yi-9b", reduced=True)
+    opt = adamw.OptConfig()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, opt, generator=torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--reduced", "--steps", "1",
+                           "--ckpt-dir", str(tmp_path / "launch")])
+    # a port state made on the CPU trains where it lies
+    state = init_train_state(cfg, opt, generator=torch.Generator(),
+                             device="cpu")
+    tr = Trainer(train_step=make_train_step(cfg, opt), state=state,
+                 dataset=SyntheticLMDataset(vocab=cfg.vocab, seq_len=8,
+                                            global_batch=2),
+                 ckpt_dir=str(tmp_path / "trainer"))
+    history = tr.run(1)
+    assert len(history) == 1 and tr.state["step"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("call", [

@@ -17,6 +17,9 @@ of these paths sums in a fixed order), the wrappers' launch counts of a
 replayed run equal the eager run's, exactly the declared shapes captured.
 This file imports no JAX: the card's tests run where JAX is missing.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -172,6 +175,26 @@ def test_sample_inverts_the_cdf():
 
 # ---------------------------------------------------------------------------
 # on the card: graphs against eager steps
+@pytest.mark.parametrize("engine", ["continuous", "wave"])
+def test_dropped_engine_is_freed_without_a_collection(lm, engine):
+    """An engine holds no reference cycle: with the cyclic collector off,
+    dropping it frees it at once."""
+    cfg, model = lm
+    cls = E.ServeEngine if engine == "continuous" else E.WaveServeEngine
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        eng = cls(model, cfg, batch_slots=2, max_len=S, device="cpu")
+        eng.generate([E.Request(prompt=[3, 4, 5], max_new_tokens=2,
+                                eos_id=-1)])
+        ref = weakref.ref(eng)
+        del eng
+        assert ref() is None
+    finally:
+        if collecting:
+            gc.enable()
+
+
 # ---------------------------------------------------------------------------
 
 SLOTS, MAX_LEN, CHUNK = 4, 64, 8
@@ -273,6 +296,48 @@ def test_decoupled_graphs_equal_inline_and_eager(cuda_device):
                                            "reset", "insert",
                                            "reset_prefill"]
     assert outs[True] == outs[False] == inline
+
+
+@pytest.mark.cuda
+def test_dropped_graph_engine_frees_the_card_without_a_collection(
+        cuda_device):
+    """The captures leave the collector as they found it (off here), and
+    a dropped graph engine gives its graphs, pool and caches back at once.
+    What outlives it by design is cached per stream, for the next engine
+    that draws its side stream from the stream pool: the kernels'
+    workspaces and cuBLAS's workspace (32 MiB on the H100) of that
+    stream; with those cleared the card holds no more than before."""
+    from repro_torch.kernels import flash_attention
+    cfg = get_config("yi-9b", reduced=True)
+    model = _card_lm(cfg, cuda_device)
+    reqs = _requests(cfg)
+    # what a first run makes once per process (the rope tables, the
+    # default stream's workspaces) is made before the count
+    E.ServeEngine(model, cfg, batch_slots=SLOTS, max_len=MAX_LEN,
+                  prefill_chunk=CHUNK, graphs=False).generate(reqs)
+    collecting = gc.isenabled()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda_device)
+    gc.disable()
+    try:
+        eng = E.ServeEngine(model, cfg, batch_slots=SLOTS, max_len=MAX_LEN,
+                            prefill_chunk=CHUNK)
+        assert eng.graphs.captured and not gc.isenabled()
+        eng.generate(reqs)
+        stream = eng.graphs.stream.cuda_stream
+        ref = weakref.ref(eng)
+        del eng
+        torch.cuda.synchronize()
+        assert ref() is None
+        for cache in (kernels._split_k_scratch, flash_attention._attn_scratch):
+            for key in [k for k in cache if k[1] == stream]:
+                del cache[key]
+        torch._C._cuda_clearCublasWorkspaces()
+        assert torch.cuda.memory_allocated(cuda_device) <= before
+    finally:
+        if collecting:
+            gc.enable()
 
 
 @pytest.mark.cuda

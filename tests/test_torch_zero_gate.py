@@ -282,7 +282,7 @@ class TestRouting:
 
     def test_registry_contract(self):
         m = registry.meta("zero_gate")
-        assert (m.accum, m.vjp, m.backend) == ("float32", "no_vjp", "cuda")
+        assert (m.accum, m.vjp, m.backend) == ("float32", "custom", "cuda")
 
 
 # ---------------------------------------------------------------------------
