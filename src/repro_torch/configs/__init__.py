@@ -1,7 +1,7 @@
 """Architecture configs of the port.
 
 ``get_config(name)`` resolves the LM ids the port serves as the
-reference does: ``get_config("yi-9b")`` or ``get_config("mixtral-8x7b")``,
+reference does: ``get_config("yi-9b")`` or ``get_config("deepseek-v3-671b")``,
 or with ``reduced=True`` for the CPU test variant.  An LM config is added
 with the slice that first runs it.  ``get_vision_config(name)`` resolves the
 conv-net zoo: ResNet50, MobileNetV1, YOLOv3 and YOLOv3-tiny.
@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("yi-9b", "mixtral-8x7b")
+ARCH_IDS = ("yi-9b", "mixtral-8x7b", "deepseek-v3-671b", "qwen2.5-14b",
+            "deepseek-coder-33b", "llama3-405b")
 
 VISION_IDS = (
     "resnet50",

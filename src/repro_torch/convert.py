@@ -17,11 +17,16 @@ stacked leaf, a stacked quantized weight included (int4: ``q`` of shape
 the port's one module per layer.  An MoE block's ``router (L, d, E)`` and
 expert weights ``(L, E, d, f)`` (quantized ones too: ``q`` ``(L, E,
 ceil(d/2), f)`` in int4, ``scale`` ``(L, E, 1, f)``) are sliced the same
-way, with its ``shared`` MLP where the config has one.
+way, with its ``shared`` MLP where the config has one.  An MLA layer's
+``q_a``, ``q_a_norm``, ``q_b``, ``kv_a``, ``kv_a_norm``, ``kv_b`` and ``wo``
+are sliced likewise, and a DeepSeek-V3 tree's unstacked ``mtp`` subtree
+(``proj``, one dense MLA ``block``, ``norm``) becomes the port's
+``transformer.MTP``.
 
 :func:`caches_from_jax` carries the reference's LM caches across the same
-way (dense slot caches, a windowed layer's rolling buffer among them, or
-paged ones with their pools, scale pools, counters and page table), so
+way (dense slot caches, a windowed layer's rolling buffer and an MLA
+layer's latent cache among them, or paged ones with their pools, scale
+pools, counters and page table), so
 that one step of both packages can start from the same cache state.
 
 :func:`train_state_from_jax` carries a reference training state across:
@@ -38,6 +43,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as LL
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as TT
 from repro_torch.quant.qtensor import QuantizedTensor
@@ -127,26 +133,46 @@ def _layer(a, i: int):
     return np.asarray(a)[i]
 
 
+def _stacked(tree):
+    """An unstacked subtree (the MTP head's) with a layer axis of 1 on
+    every array and quantized payload, so that :func:`_layer` slices it
+    as it slices a stage's leaves."""
+    if isinstance(tree, dict) and "q" in tree and "scale" in tree:
+        act = tree.get("act_scale")
+        return dict(tree, q=np.asarray(tree["q"])[None],
+                    scale=np.asarray(tree["scale"])[None],
+                    act_scale=None if act is None else np.asarray(act)[None])
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return np.asarray(tree)[None]
+
+
 def _lm_block(layers: dict, i: int, cfg: ModelConfig,
               stage) -> TT.Block:
     attn, ffn = layers["attn"], layers["ffn"]
     w = lambda d, k: _weight(_layer(d[k], i))               # noqa: E731
+    norm = lambda d: LL.RMSNorm(                            # noqa: E731
+        _tensor(_layer(d["scale"], i)))
     mlp = lambda d: LL.MLP(w(d, "w_gate"), w(d, "w_up"),    # noqa: E731
                            w(d, "w_down"))
-    biases = tuple(_tensor(_layer(attn[k], i)) for k in ("bq", "bk", "bv")) \
-        if cfg.qkv_bias else ()
+    if stage.attn == "mla":
+        attn_mod = MLA.MLA(w(attn, "q_a"), norm(attn["q_a_norm"]),
+                           w(attn, "q_b"), w(attn, "kv_a"),
+                           norm(attn["kv_a_norm"]), w(attn, "kv_b"),
+                           w(attn, "wo"))
+    else:
+        biases = tuple(_tensor(_layer(attn[k], i))
+                       for k in ("bq", "bk", "bv")) if cfg.qkv_bias else ()
+        attn_mod = LL.Attention(w(attn, "wq"), w(attn, "wk"), w(attn, "wv"),
+                                w(attn, "wo"), *biases)
     if stage.block == "moe":
         ffn_mod = MOE.MoE(_tensor(_layer(ffn["router"], i)),
                           w(ffn, "w_gate"), w(ffn, "w_up"), w(ffn, "w_down"),
                           mlp(ffn["shared"]) if "shared" in ffn else None)
     else:
         ffn_mod = mlp(ffn)
-    return TT.Block(
-        LL.RMSNorm(_tensor(_layer(layers["ln1"]["scale"], i))),
-        LL.Attention(w(attn, "wq"), w(attn, "wk"), w(attn, "wv"),
-                     w(attn, "wo"), *biases),
-        LL.RMSNorm(_tensor(_layer(layers["ln2"]["scale"], i))),
-        ffn_mod)
+    return TT.Block(norm(layers["ln1"]), attn_mod, norm(layers["ln2"]),
+                    ffn_mod)
 
 
 def lm_params_from_jax(tree: dict, cfg: ModelConfig, *,
@@ -158,9 +184,15 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig, *,
     stages = [TT.Stage([_lm_block(p_s["layers"], i, cfg, s)
                         for i in range(s.n_layers)])
               for p_s, s in zip(tree["stages"], cfg.stages, strict=True)]
+    mtp = None
+    if cfg.mtp:
+        m = tree["mtp"]
+        mtp = TT.MTP(_weight(m["proj"]),
+                     _lm_block(_stacked(m["block"]), 0, cfg, TT.MTP_STAGE),
+                     LL.RMSNorm(_tensor(m["norm"]["scale"])))
     return TT.LM(cfg, _tensor(tree["embed"]), stages,
                  LL.RMSNorm(_tensor(tree["final_norm"]["scale"])),
-                 _weight(tree["lm_head"])).to(dev)
+                 _weight(tree["lm_head"]), mtp).to(dev)
 
 
 def _array(a) -> torch.Tensor:

@@ -117,7 +117,9 @@ def _dense_init(generator: torch.Generator, shape, dtype, scale=None):
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
-    return (w * scale).to(dtype)
+    # scaled in place: one weight's bytes at a time (a DeepSeek-V3 expert
+    # weight is 15 GB in float32)
+    return w.mul_(scale).to(dtype)
 
 
 def rope_freqs(dh: int, theta: float) -> torch.Tensor:
@@ -320,8 +322,9 @@ def cached_attention(
 
 def _write_rows(buf: torch.Tensor, new: torch.Tensor,
                 positions: torch.Tensor, valid: torch.Tensor) -> None:
-    """``buf[b, positions[b, t]] = new[b, t]`` in place where ``valid``;
-    padded tokens write nothing (the reference drops their scatter).
+    """``buf[b, positions[b, t]] = new[b, t]`` in place where ``valid``
+    (rows of any trailing shape: K / V heads, or MLA's latent rows); padded
+    tokens write nothing (the reference drops their scatter).
 
     Without a host sync, so that a CUDA graph can hold it: every token
     gathers the row it will write and a padded one writes that row back
@@ -334,18 +337,19 @@ def _write_rows(buf: torch.Tensor, new: torch.Tensor,
     engine's clamp of the chunk to the window ensures."""
     B, size = buf.shape[:2]
     T = new.shape[1]
+    rows = (B, T) + (1,) * (new.dim() - 2)        # a token's row, broadcast
     positions = positions.long()
     if size < T:
         spare = size + torch.arange(T, device=buf.device)
-        idx = torch.where(valid, positions, spare)[:, :, None, None]
+        idx = torch.where(valid, positions, spare).reshape(rows)
         ext = torch.cat([buf, new], dim=1)
         ext.scatter_(1, idx.expand_as(new), new)
         buf.copy_(ext[:, :size])
         return
     idx = torch.where(positions >= size, positions - T, positions)
-    idx = idx[:, :, None, None].expand_as(new)
+    idx = idx.reshape(rows).expand_as(new)
     old = torch.gather(buf, 1, idx)
-    buf.scatter_(1, idx, torch.where(valid[:, :, None, None], new, old))
+    buf.scatter_(1, idx, torch.where(valid.reshape(rows), new, old))
 
 
 def init_attention(generator: torch.Generator, cfg,

@@ -3,7 +3,10 @@
   * resume from the latest verified checkpoint (parameters, optimizer and
     the data iterator's state);
   * periodic async checkpoints, and a final one; on SIGTERM / SIGINT the
-    loop stops after the step in flight and saves;
+    loop stops after the step in flight and saves (the handlers are the
+    loop's own: ``run`` puts back the ones they replaced when it ends,
+    so that no handler keeps a finished trainer, and its state on the
+    card, alive);
   * retry: a step that raises is retried from the last checkpoint, up to
     ``max_retries`` times in a row.  The step updates the state in place:
     without a checkpoint a step that failed before its update is retried
@@ -74,15 +77,19 @@ class Trainer:
         return True
 
     # ------------------------------------------------------------ signals
-    def _install_signal_handlers(self):
+    def _install_signal_handlers(self) -> dict:
+        """Install the loop's SIGTERM / SIGINT handlers; returns the
+        handlers they replaced."""
         def handler(signum, frame):
             log.warning("signal %s: emergency checkpoint then stop", signum)
             self._stop = True
+        previous = {}
         for sig in (signal.SIGTERM, signal.SIGINT):
             try:
-                signal.signal(sig, handler)
+                previous[sig] = signal.signal(sig, handler)
             except ValueError:
                 pass  # not on the main thread (tests)
+        return previous
 
     def _default_straggler_hook(self, step: int, dt: float, median: float):
         log.warning("straggler: step %d took %.3fs (median %.3fs)",
@@ -95,7 +102,15 @@ class Trainer:
         self._saved_step = step
 
     def run(self, num_steps: int) -> list[dict]:
-        self._install_signal_handlers()
+        previous = self._install_signal_handlers()
+        try:
+            return self._loop(num_steps)
+        finally:
+            for sig, handler in previous.items():
+                if handler is not None:      # None: not set from Python
+                    signal.signal(sig, handler)
+
+    def _loop(self, num_steps: int) -> list[dict]:
         start = int(self.state["step"])
         retries = 0
         step = start

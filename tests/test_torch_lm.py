@@ -57,7 +57,8 @@ UNPORTED = {
     "moe": dict(stages=(StageCfg(2, "moe"),)),
     "mamba2": dict(stages=(StageCfg(2, "mamba2"),)),
     "hybrid": dict(stages=(StageCfg(2, "hybrid", shared_attn_every=2),)),
-    "mla": dict(stages=(StageCfg(2, "dense", attn="mla"),)),
+    "mla": dict(stages=(StageCfg(2, "dense", attn="mla"),), q_lora=32,
+                kv_lora=16, nope_head=16, rope_head=8, v_head=16),
     "window": dict(stages=(StageCfg(2, "dense", window=8),)),
     "audio": dict(frontend="audio"),
     "vlm": dict(frontend="vlm"),
@@ -90,7 +91,9 @@ def _close_logits(got, want, tol, rows=None):
 
 class TestConfigs:
     def test_same_ids(self):
-        assert ARCH_IDS == ("yi-9b", "mixtral-8x7b") \
+        assert ARCH_IDS == ("yi-9b", "mixtral-8x7b", "deepseek-v3-671b",
+                            "qwen2.5-14b", "deepseek-coder-33b",
+                            "llama3-405b") \
             and set(ARCH_IDS) <= set(J_ARCH_IDS)
 
     @pytest.mark.parametrize("reduced", [False, True])
@@ -123,17 +126,20 @@ class TestConfigs:
     def test_unported_architectures_raise(self, name):
         cfg = dataclasses.replace(get_config("yi-9b", reduced=True),
                                   **UNPORTED[name])
-        if name in ("moe", "window"):
-            # ported: MoE blocks and sliding windows (tests/test_torch_moe.py
-            # and tests/test_torch_window.py hold them against the
-            # reference)
+        if name in ("moe", "window", "mla"):
+            # ported: MoE blocks, sliding windows and MLA
+            # (tests/test_torch_moe.py, tests/test_torch_window.py and
+            # tests/test_torch_mla.py hold them against the reference)
             if name == "moe":
                 cfg = dataclasses.replace(cfg, n_experts=4, top_k=2,
                                           d_ff_expert=64)
             T.init_params(cfg, generator=torch.Generator(), device="cpu")
             caches = T.init_caches(cfg, 1, 16, device="cpu")
-            assert caches["stages"][0]["layers"][0]["attn"]["k"].shape[1] \
-                == (8 if name == "window" else 16)
+            layer = caches["stages"][0]["layers"][0]["attn"]
+            if name == "mla":
+                assert tuple(layer["c"].shape) == (1, 16, cfg.kv_lora)
+                return
+            assert layer["k"].shape[1] == (8 if name == "window" else 16)
             return
         with pytest.raises(NotImplementedError, match="not ported yet"):
             T.init_params(cfg, generator=torch.Generator(), device="cpu")
@@ -471,6 +477,44 @@ class TestSteps:
             np.testing.assert_array_equal(np_of(layer["attn"]["len"]),
                                           np.asarray(jlayers["len"][i]))
 
+    @pytest.mark.parametrize("name", ["qwen2.5-14b", "deepseek-coder-33b",
+                                      "llama3-405b"])
+    def test_dense_configs_match_reference(self, name):
+        # the reduced dense configs that need no new module (Qwen2.5's
+        # q / k / v biases made non-zero so that they count): weights
+        # through lm_params_from_jax, two prefill chunks and a decode step
+        cfg_j = j_get_config(name, reduced=True)
+        params = JT.init_params(jax.random.PRNGKey(2), cfg_j)
+        if cfg_j.qkv_bias:
+            attn = params["stages"][0]["layers"]["attn"]
+            for i, k in enumerate(("bq", "bk", "bv")):
+                attn[k] = jnp.asarray(rand(30 + i, *attn[k].shape) * 0.1)
+        cfg = get_config(name, reduced=True)
+        model = lm_params_from_jax(tree_to_numpy(params), cfg, device="cpu")
+        assert (model.stages[0].layers[0].attn.bq is not None) == \
+            cfg.qkv_bias
+        B, max_len = 3, 24
+        tok, valid = _step_case(cfg, seed=5)
+        jc = JT.init_caches(cfg_j, B, max_len, dtype=jnp.float32)
+        tc = T.init_caches(cfg, B, max_len, torch.float32, device="cpu")
+        for t, v in ((tok, valid), (tok[:, :1], None),
+                     (tok[::-1].copy(), valid[[1, 2, 0]])):
+            with jaxon.policy(backend="interpret"):
+                if v is None:
+                    lj, jc = JT.decode_step(params, jc, {"tokens": jnp.asarray(
+                        t)}, cfg_j)
+                else:
+                    lj, jc = JT.prefill_step(params, jc, {
+                        "tokens": jnp.asarray(t)}, jnp.asarray(v), cfg_j)
+            if v is None:
+                lt, tc = T.decode_step(model, tc, {"tokens": torch.from_numpy(
+                    t)}, cfg)
+            else:
+                lt, tc = T.prefill_step(model, tc, {
+                    "tokens": torch.from_numpy(t)}, torch.from_numpy(v), cfg)
+            _close_logits(lt, lj, FLOAT_LOGIT_TOL, rows=v)
+        np.testing.assert_array_equal(np_of(tc["pos"]), np.asarray(jc["pos"]))
+
     def test_qkv_bias_config_matches_reference(self):
         # reduced Yi-9B with q/k/v biases (as Qwen2.5 has), made non-zero
         # so that they count
@@ -540,7 +584,7 @@ class TestSteps:
         # the reference), and so is a sliding window (a window of 1: each
         # token sees only itself, so the output is its own value's
         # projection; tests/test_torch_window.py holds windows against the
-        # reference); MLA still raises
+        # reference); SSM stages still raise
         out, cache = L.attention_fwd(model.stages[0].layers[0].attn, x, cfg,
                                      positions=torch.arange(2))
         assert cache is None and out.shape == x.shape
@@ -553,7 +597,7 @@ class TestSteps:
             -1, -1, -1, cfg.n_heads // cfg.n_kv, -1).reshape(1, 2, -1)
         assert_close(out, torch.einsum("bse,ed->bsd", v, attn.wo))
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.check_ported(dataclasses.replace(cfg, **UNPORTED["mla"]))
+            T.check_ported(dataclasses.replace(cfg, **UNPORTED["mamba2"]))
         with pytest.raises(NotImplementedError, match="tied embeddings"):
             T.check_ported(dataclasses.replace(cfg, tie_embeddings=True))
 

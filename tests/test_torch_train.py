@@ -7,18 +7,23 @@ carried into the port by ``convert.train_state_from_jax``.  The reference
 computes its loss gradients under ``backend="interpret"`` (its Pallas
 kernels and their custom VJPs) and its whole train steps under its
 default policy, as its own tests run them (``tests/test_runtime.py``).
-Tolerances: the loss, ``ce`` and ``aux`` within 1e-5 relative; each
+Reduced Yi-9B, Mixtral 8x7B and DeepSeek-V3 (MLA, a shared expert, the
+MTP loss).  Tolerances: the loss, ``ce``, ``aux`` and ``mtp_ce`` within
+1e-5 relative; each
 gradient within 1e-4 of its own max |g| (float32 sums in another order
 through the layers and the backward); AdamW's new params and moments
 within 1e-6 (the same float32 formula, one clipping norm summed in
 another order).
 """
 import dataclasses
+import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
+import weakref
 from pathlib import Path
 
 import jax
@@ -82,7 +87,8 @@ def assert_tensors_close(got: dict, want: dict, *, rel_of_max: float):
             (n, err, float(np.abs(w).max()))
 
 
-@pytest.fixture(scope="module", params=["yi-9b", "mixtral-8x7b"])
+@pytest.fixture(scope="module",
+                params=["yi-9b", "mixtral-8x7b", "deepseek-v3-671b"])
 def ref(request):
     """The reference's state, one batch and its loss, metrics and grads
     under ``backend="interpret"``, for reduced ``request.param``."""
@@ -119,7 +125,9 @@ class TestLoss:
         params = dict(model.named_parameters())
         loss, metrics = T.loss_fn(model, ref["batch"], cfg)
         grads = torch.autograd.grad(loss, list(params.values()))
-        for k in ("ce", "aux", "loss"):
+        # DeepSeek-V3's also the MTP head's mtp_ce
+        assert set(metrics) == set(ref["metrics"])
+        for k in ref["metrics"]:
             np.testing.assert_allclose(float(metrics[k]), ref["metrics"][k],
                                        rtol=LOSS_RTOL, atol=1e-7)
         assert_tensors_close(dict(zip(params, grads)),
@@ -577,6 +585,36 @@ class TestTrainer:
             tr.dataset.step
         for (k, a), (_, b) in zip(_flat(tr.state), _flat(tr2.state)):
             assert torch.equal(a, b), k
+
+    def test_run_puts_back_the_signal_handlers(self, tmp_path):
+        # the loop's SIGTERM / SIGINT handlers close over the trainer: left
+        # installed, they would keep a finished trainer and its state (on
+        # the card, a model's weights and moments) alive for good
+        cfg = get_config("yi-9b", reduced=True)
+        opt = adamw.OptConfig(lr=3e-3, warmup_steps=5, total_steps=60)
+        state = init_train_state(cfg, opt, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+        sigs = (signal.SIGTERM, signal.SIGINT)
+        before = {s: signal.getsignal(s) for s in sigs}
+        during = []
+        step = make_train_step(cfg, opt)
+
+        def watched_step(st, b):
+            during.append({s: signal.getsignal(s) for s in sigs})
+            return step(st, b)
+
+        tr = Trainer(train_step=watched_step, state=state,
+                     dataset=SyntheticLMDataset(vocab=cfg.vocab, seq_len=S,
+                                                global_batch=2, seed=3),
+                     ckpt_dir=str(tmp_path))
+        assert len(tr.run(2)) == 2
+        assert {s: signal.getsignal(s) for s in sigs} == before
+        if threading.current_thread() is threading.main_thread():
+            assert all(during[0][s] is not before[s] for s in sigs)
+        trainer, params = weakref.ref(tr), weakref.ref(state["params"])
+        del tr, state, during
+        gc.collect()
+        assert trainer() is None and params() is None
 
     @pytest.mark.parametrize("fails", ["before_update", "within_update"])
     def test_retry_without_a_checkpoint(self, tmp_path, fails):

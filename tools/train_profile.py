@@ -99,7 +99,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, {k: fn.launches for k, fn in counters.items()}, None
 
-    cfg = C.train_cut(get_config("yi-9b"), C.TRAIN_LAYERS)
+    cfg = C.cut_stages(get_config("yi-9b"), C.TRAIN_LAYERS)
     opt_cfg = adamw.OptConfig(lr=3e-5, warmup_steps=2, total_steps=100)
     state = init_train_state(
         cfg, opt_cfg, device=dev,
