@@ -1,17 +1,26 @@
 """Architecture configs of the port.
 
-``get_config(name)`` resolves the LM ids the port serves as the
-reference does: ``get_config("yi-9b")`` or ``get_config("deepseek-v3-671b")``,
-or with ``reduced=True`` for the CPU test variant.  An LM config is added
-with the slice that first runs it.  ``get_vision_config(name)`` resolves the
+``get_config(name)`` resolves the reference's ten LM ids, in the
+reference's order: ``get_config("yi-9b")`` or ``get_config("zamba2-7b")``,
+or with ``reduced=True`` for the CPU test variant.  ``get_vision_config(name)`` resolves the
 conv-net zoo: ResNet50, MobileNetV1, YOLOv3 and YOLOv3-tiny.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("yi-9b", "mixtral-8x7b", "deepseek-v3-671b", "qwen2.5-14b",
-            "deepseek-coder-33b", "llama3-405b")
+ARCH_IDS = (
+    "deepseek-v3-671b",
+    "mixtral-8x7b",
+    "yi-9b",
+    "deepseek-coder-33b",
+    "qwen2.5-14b",
+    "llama3-405b",
+    "musicgen-medium",
+    "zamba2-7b",
+    "falcon-mamba-7b",
+    "internvl2-1b",
+)
 
 VISION_IDS = (
     "resnet50",

@@ -3,9 +3,8 @@
 Port of ``repro.configs.base``: the same fields with the same defaults, so
 a config compares field for field with the reference's; the parameter and
 compute dtypes resolve to torch dtypes.  Every architecture's config is
-mirrored; the port's model runs the dense and MoE stages with GQA
-attention, sliding windows included (``repro_torch.models.transformer``
-raises for MLA, SSM and hybrid stages, frontends and tied embeddings).
+mirrored, and the port's model runs each of them
+(``repro_torch.models.transformer``).
 """
 from __future__ import annotations
 

@@ -21,12 +21,18 @@ way, with its ``shared`` MLP where the config has one.  An MLA layer's
 ``q_a``, ``q_a_norm``, ``q_b``, ``kv_a``, ``kv_a_norm``, ``kv_b`` and ``wo``
 are sliced likewise, and a DeepSeek-V3 tree's unstacked ``mtp`` subtree
 (``proj``, one dense MLA ``block``, ``norm``) becomes the port's
-``transformer.MTP``.
+``transformer.MTP``.  An SSM layer's ``ln1`` and ``mixer`` (Mamba-1's
+``in_proj`` ... ``out_proj``, Mamba-2's split ``in_z`` / ``in_x`` /
+``in_b`` / ``in_c`` / ``in_dt`` projections, convs, ``norm`` and
+``out_proj``) become ``models.ssm``'s mixers, a hybrid stage's unstacked
+``shared`` subtree its ``transformer.SharedAttn``; a tied tree has no
+``lm_head``.
 
 :func:`caches_from_jax` carries the reference's LM caches across the same
-way (dense slot caches, a windowed layer's rolling buffer and an MLA
-layer's latent cache among them, or paged ones with their pools, scale
-pools, counters and page table), so
+way (dense slot caches, a windowed layer's rolling buffer, an MLA
+layer's latent cache, an SSM layer's conv and SSM state and a hybrid
+stage's shared attention cache among them, or paged ones with their
+pools, scale pools, counters and page table), so
 that one step of both packages can start from the same cache state.
 
 :func:`train_state_from_jax` carries a reference training state across:
@@ -45,6 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as LL
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as TT
 from repro_torch.quant.qtensor import QuantizedTensor
 from repro_torch.serve import kvcache as KV
@@ -147,12 +154,35 @@ def _stacked(tree):
     return np.asarray(tree)[None]
 
 
+_MAMBA1 = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias",
+           "A_log", "D", "out_proj")
+_MAMBA2 = ("in_z", "in_x", "in_b", "in_c", "in_dt", "conv_x_w", "conv_x_b",
+           "conv_b_w", "conv_b_b", "conv_c_w", "conv_c_b", "dt_bias",
+           "A_log", "D")
+
+
+def _gqa(attn: dict, i: int, cfg: ModelConfig) -> LL.Attention:
+    w = lambda k: _weight(_layer(attn[k], i))               # noqa: E731
+    biases = tuple(_tensor(_layer(attn[k], i))
+                   for k in ("bq", "bk", "bv")) if cfg.qkv_bias else ()
+    return LL.Attention(w("wq"), w("wk"), w("wv"), w("wo"), *biases)
+
+
 def _lm_block(layers: dict, i: int, cfg: ModelConfig,
-              stage) -> TT.Block:
-    attn, ffn = layers["attn"], layers["ffn"]
+              stage) -> TT.Block | TT.SSMBlock:
     w = lambda d, k: _weight(_layer(d[k], i))               # noqa: E731
     norm = lambda d: LL.RMSNorm(                            # noqa: E731
         _tensor(_layer(d["scale"], i)))
+    if stage.block == "mamba1":
+        m = layers["mixer"]
+        return TT.SSMBlock(norm(layers["ln1"]),
+                           SSM.Mamba1(*(w(m, k) for k in _MAMBA1)))
+    if stage.block in ("mamba2", "hybrid"):
+        m = layers["mixer"]
+        return TT.SSMBlock(norm(layers["ln1"]), SSM.Mamba2(
+            *(w(m, k) for k in _MAMBA2), norm(m["norm"]),
+            w(m, "out_proj")))
+    attn, ffn = layers["attn"], layers["ffn"]
     mlp = lambda d: LL.MLP(w(d, "w_gate"), w(d, "w_up"),    # noqa: E731
                            w(d, "w_down"))
     if stage.attn == "mla":
@@ -161,10 +191,7 @@ def _lm_block(layers: dict, i: int, cfg: ModelConfig,
                            norm(attn["kv_a_norm"]), w(attn, "kv_b"),
                            w(attn, "wo"))
     else:
-        biases = tuple(_tensor(_layer(attn[k], i))
-                       for k in ("bq", "bk", "bv")) if cfg.qkv_bias else ()
-        attn_mod = LL.Attention(w(attn, "wq"), w(attn, "wk"), w(attn, "wv"),
-                                w(attn, "wo"), *biases)
+        attn_mod = _gqa(attn, i, cfg)
     if stage.block == "moe":
         ffn_mod = MOE.MoE(_tensor(_layer(ffn["router"], i)),
                           w(ffn, "w_gate"), w(ffn, "w_up"), w(ffn, "w_down"),
@@ -179,10 +206,21 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig, *,
                        device=None) -> TT.LM:
     """The port's LM for ``cfg`` holding the weights of ``tree`` (the
     reference's LM pytree of numpy arrays), on ``device`` (None: CUDA)."""
-    TT.check_ported(cfg)
     dev = resolve_device(device)
+
+    def shared(p_s: dict) -> TT.SharedAttn | None:
+        if "shared" not in p_s:
+            return None
+        sh = p_s["shared"]
+        norm = lambda d: LL.RMSNorm(_tensor(d["scale"]))  # noqa: E731
+        return TT.SharedAttn(
+            norm(sh["ln1"]), _gqa(_stacked(sh["attn"]), 0, cfg),
+            norm(sh["ln2"]), LL.MLP(*(_weight(sh["mlp"][k])
+                                      for k in ("w_gate", "w_up",
+                                                "w_down"))))
+
     stages = [TT.Stage([_lm_block(p_s["layers"], i, cfg, s)
-                        for i in range(s.n_layers)])
+                        for i in range(s.n_layers)], shared(p_s))
               for p_s, s in zip(tree["stages"], cfg.stages, strict=True)]
     mtp = None
     if cfg.mtp:
@@ -192,7 +230,8 @@ def lm_params_from_jax(tree: dict, cfg: ModelConfig, *,
                      LL.RMSNorm(_tensor(m["norm"]["scale"])))
     return TT.LM(cfg, _tensor(tree["embed"]), stages,
                  LL.RMSNorm(_tensor(tree["final_norm"]["scale"])),
-                 _weight(tree["lm_head"]), mtp).to(dev)
+                 None if cfg.tie_embeddings else _weight(tree["lm_head"]),
+                 mtp).to(dev)
 
 
 def _array(a) -> torch.Tensor:
@@ -213,7 +252,6 @@ def caches_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
     leading layer axis), on ``device`` (None: CUDA).  A paged tree (one
     with a ``page_table``) keeps its pools, scale pools, counters and
     table; each pool gains the port's zero sink page at its end."""
-    TT.check_ported(cfg)
     dev = resolve_device(device)
 
     def leaf(name: str, a) -> torch.Tensor:
@@ -222,13 +260,20 @@ def caches_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> dict:
             t = torch.cat([t, torch.zeros_like(t[:1])])
         return t.to(dev)
 
+    def stage(c_s: dict, s) -> dict:
+        out = {"layers": [
+            {part: {name: leaf(name, a[i]) for name, a in leaves.items()}
+             for part, leaves in c_s["layers"].items()}
+            for i in range(s.n_layers)]}
+        if "shared" in c_s:
+            out["shared"] = {name: _array(a).to(dev)
+                             for name, a in c_s["shared"].items()}
+        return out
+
     caches = {
         "pos": _array(tree["pos"]).to(dev),
-        "stages": [{"layers": [
-            {"attn": {name: leaf(name, a[i])
-                      for name, a in c_s["layers"]["attn"].items()}}
-            for i in range(s.n_layers)]}
-            for c_s, s in zip(tree["stages"], cfg.stages, strict=True)],
+        "stages": [stage(c_s, s)
+                   for c_s, s in zip(tree["stages"], cfg.stages, strict=True)],
     }
     if KV.PAGE_TABLE_KEY in tree:
         caches[KV.PAGE_TABLE_KEY] = _array(tree[KV.PAGE_TABLE_KEY]).to(dev)

@@ -112,9 +112,13 @@ def stream_workspaces(dev: torch.device, stream: int) -> tuple:
     ``stream`` write: the split-K planes and counters, the int8
     attention's amax slots (empty where none was made yet).  A CUDA graph
     captured on ``stream`` keeps them alive: its launches write them at
-    the addresses they had at capture."""
+    the addresses they had at capture.  A ``dev`` without an index is the
+    current device, as the kernels key the workspaces by their operands'
+    device index."""
     from repro_torch.kernels import flash_attention
-    key = (dev.index, stream)
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    key = (index, stream)
     attn = flash_attention._attn_scratch.get(key)
     return (*_split_k_scratch.get(key, ()),
             *(() if attn is None else (attn,)))

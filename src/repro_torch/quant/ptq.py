@@ -95,7 +95,11 @@ def quantize_lm_weights(model: nn.Module,
 
     The new model shares every tensor it does not quantize with ``model``
     (embeddings and norms are not copied), so quantizing a model that
-    fills the card needs room for the quantized weights only."""
+    fills the card needs room for the quantized weights only.  An LM of
+    an SSM, hybrid, frontend or tied config raises "not ported yet"."""
+    from repro_torch.models import transformer as T   # deferred: a cycle
+    if isinstance(model, T.LM):
+        T.check_ported(model.cfg, reduced_precision=True)
     shared = {id(t): t for t in (*model.parameters(), *model.buffers())}
     qmodel = copy.deepcopy(model, shared)
     for m in list(qmodel.modules()):

@@ -91,10 +91,8 @@ def _close_logits(got, want, tol, rows=None):
 
 class TestConfigs:
     def test_same_ids(self):
-        assert ARCH_IDS == ("yi-9b", "mixtral-8x7b", "deepseek-v3-671b",
-                            "qwen2.5-14b", "deepseek-coder-33b",
-                            "llama3-405b") \
-            and set(ARCH_IDS) <= set(J_ARCH_IDS)
+        # all ten, in the reference's order
+        assert ARCH_IDS == J_ARCH_IDS and len(ARCH_IDS) == 10
 
     @pytest.mark.parametrize("reduced", [False, True])
     @pytest.mark.parametrize("name", ARCH_IDS)
@@ -141,10 +139,21 @@ class TestConfigs:
                 return
             assert layer["k"].shape[1] == (8 if name == "window" else 16)
             return
+        # ported: SSM and hybrid stages (tests/test_torch_ssm.py and
+        # tests/test_torch_hybrid.py) and both frontends
+        # (tests/test_torch_frontends.py); their reduced-precision serving
+        # modes still raise
+        if name in ("mamba2", "hybrid"):
+            cfg = dataclasses.replace(cfg, d_inner=128, ssm_state=8,
+                                      mamba_headdim=32)
+        T.init_params(cfg, generator=torch.Generator(), device="cpu")
+        caches = T.init_caches(cfg, 1, 8, device="cpu")
+        layer = caches["stages"][0]["layers"][0]
+        assert set(layer) == ({"ssm"} if name in ("mamba2", "hybrid")
+                              else {"attn"})
+        assert ("shared" in caches["stages"][0]) == (name == "hybrid")
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.init_params(cfg, generator=torch.Generator(), device="cpu")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.init_caches(cfg, 1, 8, device="cpu")
+            T.check_ported(cfg, reduced_precision=True)
 
 
 # ---------------------------------------------------------------------------
@@ -584,7 +593,8 @@ class TestSteps:
         # the reference), and so is a sliding window (a window of 1: each
         # token sees only itself, so the output is its own value's
         # projection; tests/test_torch_window.py holds windows against the
-        # reference); SSM stages still raise
+        # reference); SSM stages and tied embeddings are ported too, their
+        # reduced-precision serving modes not
         out, cache = L.attention_fwd(model.stages[0].layers[0].attn, x, cfg,
                                      positions=torch.arange(2))
         assert cache is None and out.shape == x.shape
@@ -596,10 +606,14 @@ class TestSteps:
             1, 2, cfg.n_kv, 1, cfg.d_head).expand(
             -1, -1, -1, cfg.n_heads // cfg.n_kv, -1).reshape(1, 2, -1)
         assert_close(out, torch.einsum("bse,ed->bsd", v, attn.wo))
+        T.check_ported(dataclasses.replace(cfg, **UNPORTED["mamba2"]))
+        T.check_ported(dataclasses.replace(cfg, tie_embeddings=True))
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.check_ported(dataclasses.replace(cfg, **UNPORTED["mamba2"]))
+            T.check_ported(dataclasses.replace(cfg, **UNPORTED["mamba2"]),
+                           reduced_precision=True)
         with pytest.raises(NotImplementedError, match="tied embeddings"):
-            T.check_ported(dataclasses.replace(cfg, tie_embeddings=True))
+            T.check_ported(dataclasses.replace(cfg, tie_embeddings=True),
+                           reduced_precision=True)
 
 
 # ---------------------------------------------------------------------------

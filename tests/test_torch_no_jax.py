@@ -28,7 +28,7 @@ from repro_torch.kernels.gemv import gemv
 from repro_torch.kernels.im2col_conv import im2col_conv
 from repro_torch.kernels.quant_gemm import fp8_gemm, int4_gemm, int4_gemv
 from repro_torch.kernels.zero_gate_gemm import zero_gate_gemm
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer  # noqa: F401
 from repro_torch.serve import engine as serve_engine
 from repro_torch.vision import engine, models
 
@@ -72,6 +72,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
     assert "repro_torch.kernels.zero_gate_gemm" in res["names"]
     assert {"repro_torch.models.moe",
             "repro_torch.configs.mixtral_8x7b"} <= set(res["names"])
+    assert {"repro_torch.models.ssm", "repro_torch.configs.falcon_mamba_7b",
+            "repro_torch.configs.zamba2_7b", "repro_torch.configs.internvl2_1b",
+            "repro_torch.configs.musicgen_medium"} <= set(res["names"])
     assert {"repro_torch.optim.adamw", "repro_torch.optim.compression",
             "repro_torch.data.pipeline",
             "repro_torch.checkpoint.checkpointing",

@@ -14,8 +14,9 @@ Yi-9B (float32, int4 + ``attn_int8``, calibrated int8), decoupled
 prefill, the wave engine and reduced ResNet50: tokens EQUAL, every step's
 logits rows bit for bit (the same kernels on the same inputs; each kernel
 of these paths sums in a fixed order), the wrappers' launch counts of a
-replayed run equal the eager run's, exactly the declared shapes captured.
-This file imports no JAX: the card's tests run where JAX is missing.
+replayed run equal the eager run's, exactly the declared shapes captured;
+a graph keeps the split-K workspace it was captured with when a later
+step grows the stream's workspace.  This file imports no JAX: the card's tests run where JAX is missing.
 """
 import gc
 import weakref
@@ -277,6 +278,40 @@ def test_graph_steps_equal_eager_steps(cuda_device, mode):
     assert len(g_rows) == len(e_rows)
     assert all(torch.equal(a, b) for a, b in zip(g_rows, e_rows))
     assert g_n == e_n and sum(g_n.values()) > 0
+
+
+@pytest.mark.cuda
+def test_graph_keeps_its_workspace_when_a_later_step_grows_it(cuda_device):
+    """A graph whose GEMV splits K keeps the stream's split-K workspace it
+    was captured with when a later step's warm-up grows the workspace
+    (Zamba2's width-16 step, then its width-1 step's wider GEMVs): the
+    old planes and counters stay allocated for the graph, and the memory
+    freed around them (masked scores of -1e30 here) never reaches its
+    output.  ``stream_workspaces`` keys a device without an index as the
+    kernels key their operands' device."""
+    from repro_torch.kernels import gemv as G
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(8, 3584, device=cuda_device, generator=g)
+    w1 = torch.randn(3584, 7168, device=cuda_device, generator=g)
+    w2 = torch.randn(3584, 14336, device=cuda_device, generator=g)
+    big = torch.randn(8, 16, 32, 512, device=cuda_device, generator=g)
+
+    def first(x, w, big):
+        p = torch.softmax(torch.where(big > 0, big, -1e30), -1)
+        return G.gemv(x, w), p.sum()
+
+    steps = StepGraphs(cuda_device)
+    steps.add("first", first, x, w1, big)
+    held = steps._steps["first"].workspaces
+    assert held and all(t.is_cuda for t in held)
+    steps.add("wider", lambda x, w: G.gemv(x, w), x, w2)
+    want = G.gemv_plain(x, w1)
+    for _ in range(3):
+        y, _ = steps.run("first")
+        steps.run("wider")
+        torch.cuda.synchronize()
+        assert float((y - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
 
 
 @pytest.mark.cuda
