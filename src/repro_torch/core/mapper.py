@@ -30,6 +30,8 @@ import math
 
 from repro_torch.core import hw
 from repro_torch.core.dataflows import ALL_DATAFLOWS, Dataflow, GemmShape
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import optrace as _obs
 
 # output tiles (bm, bn) of the traffic model and the CUDA-core GeMMs
 GEMM_TILES = (32, 64, 128)
@@ -139,6 +141,10 @@ def _select_gpu_blocking_cached(shape: GemmShape, bytes_per_elem: int,
                                 smem_budget: int) -> GpuBlocking:
     global _sweep_calls
     _sweep_calls += 1
+    if _obs.ON:
+        _obs_metrics.counter(
+            "mapper_sweeps_total",
+            "analytic blocking sweeps (mapper cache misses)").inc()
     bks = sorted({min(bk, shape.K) for bk in _BK_CANDIDATES})
     candidates = []
     for bm in _tiles_for(shape.M):

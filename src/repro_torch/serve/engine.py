@@ -50,7 +50,21 @@ refused (:func:`check_token_frontend`).
 
 ``WaveServeEngine`` is the reference's wave-batched baseline, its one-token
 step (:func:`make_serve_step`) one CUDA graph per wave batch seen.
-``mesh=`` is not ported yet.  Sampling (``temperature >
+``mesh=`` is not ported yet.
+
+Telemetry (``repro_torch.obs``), off by default, as in the reference: with
+``optrace.ON`` at ``generate``'s start, each step is a ``serve_step`` span
+(and a ``host_scope`` profiler range), each request gets its lifecycle
+spans (queue, admit, prefill, first token, decode, done), the call's
+metrics (``serve_*`` counters, gauges and the TTFT / latency histograms)
+and the mapper and page-pool gauges are published, a running streaming
+exporter gets the engine's collector for the call, and
+``last_stats["attribution"]`` holds the achieved-intensity row.  A step's
+modeled cost is its graph's (:meth:`StepGraphs.cost`, the capture's
+ledger delta) or, for an eager step, the host ledger's delta around it:
+one ledger a step, never both.  Only the chunk step is costed, as in the
+reference (the decoupled prefill lane, insert and reset are not).  With
+telemetry off ``generate`` reads the switch once.  Sampling (``temperature >
 0``) takes one uniform a slot and step from the engine's
 ``torch.Generator`` (drawn before the step, outside any graph) and inverts
 the softmax's CDF, so it gives other tokens than the reference's
@@ -71,6 +85,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mapper import mapper_cache_stats
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.obs import annotate as _ann
+from repro_torch.obs import attribution as _attr
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import optrace as _obs
+from repro_torch.obs import streaming as _streaming
 from repro_torch.quant import is_quantized, quantize_lm_weights
 from repro_torch.quant.qtensor import QuantizedWeight
 from repro_torch.serve import kvcache as KV
@@ -600,6 +619,7 @@ class ServeEngine:
         self._validate(requests)
         B = self.batch_slots
         t0 = time.perf_counter()
+        obs_on = _obs.ON            # snapshot: one boolean read per call
         order = list(range(len(requests)))
         if self.queue_policy == "sjf":
             order.sort(key=lambda i: len(requests[i].prompt))
@@ -649,11 +669,23 @@ class ServeEngine:
                     "done_s": now,
                     "latency_s": now,
                 }
+                if obs_on:
+                    _obs.serve_request_spans(
+                        s.req_idx, t_origin=t0, queue_s=s.t_admit,
+                        first_s=s.t_first, done_s=now,
+                        prompt_len=len(s.prompt),
+                        new_tokens=len(s.out), slot=b)
                 slots[b] = _Slot()              # freed: backfilled next step
 
         steps = 0
         n_prefill = 0
         by_width: dict[int, int] = {}
+        modeled = dict.fromkeys(_obs.LEDGER_KEYS[1:], 0.0)
+        covered_steps = 0
+        # publish pool/mapper gauges on the streaming cadence for the
+        # duration of this call (no-op without an active exporter)
+        streaming_on = obs_on and _streaming.add_collector(
+            self._stream_collector)
         while pending or any(s.state != "free" for s in slots):
             self._admit(slots, pending, requests, time.perf_counter() - t0,
                         finish)
@@ -670,7 +702,30 @@ class ServeEngine:
                 elif s.state == "decode":
                     tokens[b, 0] = s.last_tok
                     valid[b, 0] = True
-            nxt = self.step(caches, tokens, valid)
+            if obs_on:
+                t_step = time.perf_counter()
+                graphed = self.graphs.is_graph(("step", C))
+                ledger0 = None if graphed else _obs.host_totals()
+                with _ann.host_scope("serve_step"):
+                    nxt = self.step(caches, tokens, valid)
+                # a replay's cost is its capture's; an eager step's is the
+                # host ledger's delta around it
+                cost = self.graphs.cost(("step", C)) if graphed \
+                    else _obs.delta(ledger0, _obs.host_totals())
+                if cost is not None:
+                    for k in modeled:
+                        modeled[k] += cost[k]
+                    covered_steps += 1
+                _obs.add_span(
+                    "serve_step", t_step, time.perf_counter() - t_step,
+                    cat="serve", args={
+                        "step": steps, "width": C, "graph": graphed,
+                        "prefill_slots": sum(
+                            1 for s in slots if s.state == "prefill"),
+                        "decode_slots": sum(
+                            1 for s in slots if s.state == "decode")})
+            else:
+                nxt = self.step(caches, tokens, valid)
             steps += 1
             by_width[C] = by_width.get(C, 0) + 1
             n_prefill += sum(fed)
@@ -707,7 +762,79 @@ class ServeEngine:
             self.last_stats["prefix_hits"] = self.pool.hits - hits0
             self.last_stats["prefix_hit_tokens"] = \
                 self.pool.hit_tokens - hit_tok0
+        if obs_on:
+            # achieved-intensity attribution: modeled step cost from the
+            # graphs' and the host's ledgers vs this call's measured wall
+            self.last_stats["attribution"] = _attr.engine_row(
+                wall_s=wall, modeled=modeled, steps=steps,
+                covered_steps=covered_steps,
+                chip=_attr.modeled_chip(self.device))
+            self._publish_metrics(per_req)
+        if streaming_on:
+            _streaming.remove_collector(self._stream_collector)
         return outputs
+
+    def _publish_metrics(self, per_req: list[dict | None]) -> None:
+        """Push this call's stats into the repro_torch.obs registry
+        (telemetry enabled only -- ``generate`` never touches metric
+        objects otherwise)."""
+        st = self.last_stats
+        _obs_metrics.counter(
+            "serve_requests_total", "requests completed").inc(
+                sum(1 for r in per_req if r is not None))
+        _obs_metrics.counter(
+            "serve_tokens_total", "tokens generated").inc(
+                st["generated_tokens"])
+        _obs_metrics.counter(
+            "serve_prefill_tokens_total", "prompt tokens prefilled").inc(
+                st["prefill_tokens"])
+        _obs_metrics.counter(
+            "serve_steps_total", "engine steps executed").inc(st["steps"])
+        _obs_metrics.gauge(
+            "serve_tokens_per_s", "last call's generation throughput").set(
+                st["tokens_per_s"])
+        lat = _obs_metrics.histogram(
+            "serve_request_latency_seconds", "request completion latency")
+        ttft = _obs_metrics.histogram(
+            "serve_ttft_seconds", "time to first token (from admission)")
+        for r in per_req:
+            if r is not None:
+                lat.observe(r["latency_s"])
+                ttft.observe(r["ttft_s"])
+        self._publish_resource_gauges()
+
+    def _publish_resource_gauges(self) -> None:
+        """Mapper/page-pool gauges -- published at end of ``generate`` and,
+        when a streaming exporter is running, on every snapshot cadence
+        (host state only: the exporter thread makes no CUDA call)."""
+        mc = mapper_cache_stats()
+        _obs_metrics.gauge(
+            "mapper_cache_hit_rate", "blocking-decision cache hit rate").set(
+                mc["hit_rate"])
+        _obs_metrics.gauge(
+            "mapper_cache_entries", "blocking-decision cache entries").set(
+                mc["entries"])
+        if self.pool is not None:
+            ps = self.pool.stats()
+            _obs_metrics.gauge(
+                "pagepool_occupancy", "fraction of KV pages in use").set(
+                    ps["occupancy"])
+            _obs_metrics.gauge(
+                "pagepool_free_pages", "KV pages currently free").set(
+                    ps["free_pages"])
+            _obs_metrics.gauge(
+                "pagepool_prefix_hit_rate",
+                "prefix-index share of requested prompt tokens").set(
+                    ps["prefix_hit_rate"])
+            _obs_metrics.gauge(
+                "pagepool_evictions", "prefix pages evicted (lifetime)").set(
+                    ps["evictions"])
+
+    def _stream_collector(self) -> None:
+        """Streaming-exporter callback: refresh resource gauges mid-serve
+        so long runs stream live occupancy, not just the final state."""
+        if _obs.ON:
+            self._publish_resource_gauges()
 
 
 class WaveServeEngine:

@@ -80,6 +80,12 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
             "repro_torch.checkpoint.checkpointing",
             "repro_torch.train.train_step", "repro_torch.train.trainer",
             "repro_torch.launch.train"} <= set(res["names"])
+    assert {"repro_torch.obs.metrics", "repro_torch.obs.optrace",
+            "repro_torch.obs.trace_export", "repro_torch.obs.annotate",
+            "repro_torch.obs.profiler", "repro_torch.obs.streaming",
+            "repro_torch.obs.attribution", "repro_torch.obs.__main__",
+            "repro_torch.core.energy_model",
+            "repro_torch.launch.serve"} <= set(res["names"])
 
 
 def _imports(path: Path) -> set[str]:
@@ -154,6 +160,50 @@ def test_lm_entry_points_raise_without_cuda(no_cuda):
         lm_params_from_jax(tree, cfg)
     assert len(lm_params_from_jax(tree, cfg, device="cpu")
                .stages[0].layers) == 2
+
+
+_ENTRY_PROBE = """
+import json, runpy, sys
+sys.argv = [sys.argv[0], *{argv!r}]
+try:
+    runpy.run_module({module!r}, run_name="__main__")
+    err = None
+except SystemExit as e:
+    err = None if e.code in (0, None) else "SystemExit: " + str(e.code)
+except BaseException as e:
+    err = type(e).__name__ + ": " + str(e)
+bad = sorted(k for k in sys.modules
+             if k in ("jax", "repro") or k.startswith(("jax.", "repro.")))
+print(json.dumps({{"bad": bad, "err": err}}))
+"""
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("repro_torch.obs", ["--smoke", "--device", "cpu", "--workload", "ops"]),
+    ("repro_torch.launch.serve", ["--device", "cpu", "--requests", "2",
+                                  "--max-new", "2", "--prefill-chunk", "4"]),
+], ids=["obs", "launch_serve"])
+def test_telemetry_entry_points_run_without_jax(module, argv, tmp_path):
+    """``python -m repro_torch.obs`` and ``python -m
+    repro_torch.launch.serve`` run to their end in a fresh interpreter
+    (on the CPU, as asked) with neither ``jax`` nor ``repro`` loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", _ENTRY_PROBE.format(module=module,
+                                                   argv=argv)],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"bad": [], "err": None}
+
+
+def test_telemetry_entry_points_raise_without_cuda(no_cuda):
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.obs import __main__ as obs_main
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        obs_main.main(["--smoke"])
 
 
 def test_train_entry_points_raise_without_cuda(no_cuda, tmp_path):
