@@ -28,6 +28,10 @@ are sliced likewise, and a DeepSeek-V3 tree's unstacked ``mtp`` subtree
 ``shared`` subtree its ``transformer.SharedAttn``; a tied tree has no
 ``lm_head``.
 
+A meshed engine (``ServeEngine(mesh=)``) takes the model these build, whole,
+and keeps its rank's blocks, as the reference's ``device_put`` does: every
+rank converts the same numpy tree.
+
 :func:`caches_from_jax` carries the reference's LM caches across the same
 way (dense slot caches, a windowed layer's rolling buffer, an MLA
 layer's latent cache, an SSM layer's conv and SSM state and a hybrid

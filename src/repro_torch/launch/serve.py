@@ -11,7 +11,16 @@ off): the launcher serves the reduced config, its weights from a seeded
 ``--metrics-out``, ``--prom-out``, ``--profile-dir``, ``--stream-dir``,
 ``--sample-every``) turn ``repro_torch.obs`` on and write its artifacts;
 ``--profile-dir`` exports a ``torch.profiler`` Chrome trace there.
-``--mesh`` and ``--fake-devices`` raise: sharding is not ported yet.
+
+``--mesh DATAxMODEL`` serves the continuous engine mesh-parallel: the
+launcher starts ``data * model`` ranks (``launch.mesh.spawn``: one per GPU
+over NCCL on the card), each builds the mesh and the same engine and
+serves the same requests, and rank 0 prints.  ``--fake-devices N`` is the
+reference's "N fake CPU devices": N ranks on the CPU over gloo (the mesh
+takes the first ``data * model``), for trying ``--mesh`` without GPUs:
+
+    python -m repro_torch.launch.serve --device cpu --fake-devices 2 \\
+        --mesh 1x2
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as M
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import (
     QUEUE_POLICIES,
@@ -29,9 +39,6 @@ from repro_torch.serve.engine import (
     ServeEngine,
     WaveServeEngine,
 )
-
-NOT_PORTED_MESH = "not ported yet: sharding (ROADMAP Queue 1 item 5)"
-
 
 def build_requests(cfg, n: int, prompt_len: int, max_new: int, *,
                    mixed: bool = False) -> list[Request]:
@@ -65,15 +72,17 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--queue-policy", choices=QUEUE_POLICIES, default="fifo")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                    help="shard the engine over a device mesh (not ported "
-                         "yet: raises)")
+                    help="shard the engine over a device mesh, e.g. 2x4 "
+                         "(data=2, model=4): data*model ranks, one per "
+                         "device")
     ap.add_argument("--decouple-prefill", action="store_true",
                     help="run prompts through a dedicated prefill step and "
                          "hand the cache to a decode slot via the insert "
                          "step (dense caches only)")
     ap.add_argument("--fake-devices", type=int, default=None,
-                    help="fake N host devices for --mesh (not ported yet: "
-                         "raises)")
+                    help="N ranks on the CPU over gloo (the reference's N "
+                         "fake host devices) for trying --mesh without "
+                         "GPUs")
     ap.add_argument("--trace-out", default=None,
                     help="enable repro_torch.obs and write a Chrome-trace "
                          "JSON (load at ui.perfetto.dev)")
@@ -95,13 +104,40 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--stream-interval", type=float, default=None,
                     help="seconds between streaming snapshots")
     args = ap.parse_args(argv)
-    if args.mesh is not None or args.fake_devices is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
+    if not args.mesh:
+        serve(args)
+        return
+    data, model = M.mesh_shape(args.mesh)
+    world = data * model
+    if args.fake_devices is not None:
+        if args.device is not None and torch.device(args.device).type \
+                != "cpu":
+            raise ValueError("--fake-devices runs its ranks on the CPU")
+        if args.fake_devices < world:
+            raise ValueError(f"mesh {args.mesh} needs {world} devices, "
+                             f"have {args.fake_devices} (--fake-devices)")
+        args.device, world = "cpu", args.fake_devices
+    M.spawn(_rank_main, args, world=world,
+            device=str(resolve_device(args.device)))
 
-    dev = resolve_device(args.device)
-    obs_on = bool(args.trace_out or args.metrics_out or args.prom_out
-                  or args.stream_dir or args.profile_dir
-                  or args.sample_every > 1)
+
+def _rank_main(args) -> None:
+    """One rank of a ``--mesh`` run: the mesh, then :func:`serve` on it
+    (ranks past the mesh only take part in building it)."""
+    mesh = M.parse_mesh(args.mesh, device=resolve_device(args.device))
+    if mesh.member:
+        serve(args, mesh)
+
+
+def serve(args, mesh=None) -> None:
+    """Build the reduced model and the engine, serve the requests and
+    print (rank 0 only on a mesh; telemetry there too)."""
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
+    lead = mesh is None or mesh.rank == mesh.ranks[0]
+    out = print if lead else (lambda *a, **k: None)
+    obs_on = lead and bool(args.trace_out or args.metrics_out
+                           or args.prom_out or args.stream_dir
+                           or args.profile_dir or args.sample_every > 1)
     if obs_on:
         import repro_torch.obs as obs
         from repro_torch.obs import profiler, streaming
@@ -115,6 +151,10 @@ def main(argv: list[str] | None = None) -> None:
                 else streaming.DEFAULT_INTERVAL_S
             streaming.start(args.stream_dir, interval_s=interval)
 
+    if mesh is not None:
+        out(f"mesh: {mesh.shape} over {mesh.size} of "
+            f"{torch.distributed.get_world_size()} rank(s), "
+            f"{mesh.backend} on {dev.type}")
     cfg = get_config(args.arch, reduced=args.reduced)
     model = T.init_params(
         cfg, generator=torch.Generator().manual_seed(0), device=dev)
@@ -134,24 +174,24 @@ def main(argv: list[str] | None = None) -> None:
                              queue_policy=args.queue_policy,
                              temperature=args.temperature,
                              decouple_prefill=args.decouple_prefill,
-                             device=dev)
+                             device=dev, mesh=mesh)
     outs = engine.generate(reqs)
     for i, o in enumerate(outs):
-        print(f"req{i} ({len(reqs[i].prompt)}-token prompt): {o}")
+        out(f"req{i} ({len(reqs[i].prompt)}-token prompt): {o}")
     stats = getattr(engine, "last_stats", None)
     if stats:
         lat = [r["latency_s"] for r in stats["requests"]]
-        print(f"{stats['generated_tokens']} tokens in "
-              f"{stats['wall_s']:.2f}s ({stats['tokens_per_s']:.1f} tok/s, "
-              f"{stats['steps']} steps, p50 latency "
-              f"{np.percentile(lat, 50):.2f}s, "
-              f"p99 {np.percentile(lat, 99):.2f}s)")
+        out(f"{stats['generated_tokens']} tokens in "
+            f"{stats['wall_s']:.2f}s ({stats['tokens_per_s']:.1f} tok/s, "
+            f"{stats['steps']} steps, p50 latency "
+            f"{np.percentile(lat, 50):.2f}s, "
+            f"p99 {np.percentile(lat, 99):.2f}s)")
 
     if stats and "attribution" in stats:
         att = stats["attribution"]
-        print(f"attribution: modeled {att['modeled_flops']:.3g} FLOPs, "
-              f"step coverage {att['modeled_step_coverage']:.0%}, "
-              f"roofline {att['roofline']}")
+        out(f"attribution: modeled {att['modeled_flops']:.3g} FLOPs, "
+            f"step coverage {att['modeled_step_coverage']:.0%}, "
+            f"roofline {att['roofline']}")
 
     if obs_on:
         if args.profile_dir and profiler.stop():

@@ -73,6 +73,7 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.obs import annotate as _ann
+from repro_torch.parallel import sharding as shd
 from repro_torch.serve import kvcache as KV
 
 
@@ -349,16 +350,20 @@ def _ssm_block(p: SSMBlock, x: torch.Tensor, cfg: ModelConfig,
     if cache is None:
         return x + (SSM.mamba1_fwd if m1 else SSM.mamba2_fwd)(p.mixer, h, cfg)
     step = SSM.mamba1_step if m1 else SSM.mamba2_step
-    state = cache["ssm"]
-    ys = []
-    for t in range(h.shape[1]):
-        yt, new = step(p.mixer, h[:, t:t + 1], state, cfg)
-        for name, n in new.items():
-            if valid is not None:
-                live = valid[:, t].reshape((-1,) + (1,) * (n.dim() - 1))
-                n = torch.where(live, n, state[name])
-            state[name].copy_(n)
-        ys.append(yt)
+    # on a mesh the mixer runs replicated between its products: its
+    # channel-split tensors and state read whole, the state's block
+    # written back after the chunk
+    mixer = shd.whole_view(p.mixer)
+    with shd.gathered(cache["ssm"]) as state:
+        ys = []
+        for t in range(h.shape[1]):
+            yt, new = step(mixer, h[:, t:t + 1], state, cfg)
+            for name, n in new.items():
+                if valid is not None:
+                    live = valid[:, t].reshape((-1,) + (1,) * (n.dim() - 1))
+                    n = torch.where(live, n, state[name])
+                state[name].copy_(n)
+            ys.append(yt)
     return x + torch.cat(ys, 1)
 
 
@@ -406,7 +411,7 @@ def _embed(params: LM, batch: dict, cfg: ModelConfig, *,
             return torch.as_tensor(batch["embeds"], device=dev).to(
                 cfg.cdtype)
         tokens = torch.as_tensor(batch["tokens"], device=dev)
-        x = params.embed[tokens.long()]
+        x = shd.embedding(params.embed, tokens.long())
         if pixels and cfg.frontend == "vlm":
             pix = torch.as_tensor(batch["pixel_embeds"], device=dev)
             x = torch.cat([pix.to(x.dtype), x], dim=1)
@@ -543,7 +548,7 @@ def lm_head(params: LM, cfg: ModelConfig):
     with tied embeddings (the dispatch copies it to a contiguous operand
     at every call), else ``lm_head``."""
     if cfg.tie_embeddings:
-        return params.embed.T
+        return shd.full(params.embed).T
     return L.weight(params, "lm_head")
 
 

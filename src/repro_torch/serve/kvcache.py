@@ -13,6 +13,13 @@ and a later request with the same page-aligned prefix shares them (they
 are frozen: writes are append-only past the shared tokens), so a repeated
 system prompt costs no prefill step.
 
+On a mesh (``parallel.sharding.make_cache_spec_fn``) a rank holds the
+pools' block of kv heads (the scale pools mirror their payload's) and the
+whole page table; every rank's ``PagePool`` mirror stays the same, as
+every rank runs the same schedule, and a step that holds only its rank's
+slots writes every slot's rows (``layers.attention_fwd``), so that the
+pools, whole over (pod, data), stay the same on every rank there.
+
 Two halves, as in the reference:
 
 * the device half, plain PyTorch ops run inside the engine's steps (the

@@ -15,6 +15,11 @@ On the card:
 - Inputs: host arrays go through pinned memory (the caching host
   allocator keeps a pinned block until the copy that reads it has run), so
   no pageable host-to-device copy happens, least of all inside a capture.
+- A meshed engine's steps (``parallel.sharding``) hold their NCCL
+  collectives in the graph: the warm-up runs create the communicator
+  before the capture, and each rank, a process of its own, keeps its own
+  workspaces.  Gloo's collectives cannot be captured (such an engine
+  needs ``graphs=False``).
 - Warm-up, then capture, on one side stream per :class:`StepGraphs`: the
   step runs ``WARMUP`` times eagerly on that stream, then is captured on
   it.  The warm-up makes what is created at first use before the capture,

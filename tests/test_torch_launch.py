@@ -5,8 +5,8 @@ the reference's printout (one line a request, the throughput line, the
 attribution line, one line per artifact), the artifacts written and their
 schemas (the Chrome trace through the validator, the metrics snapshot, the
 Prometheus text, the streamed JSONL, the profiler's Chrome trace), the
-wave engine, and ``--mesh`` / ``--fake-devices`` refused: sharding is not
-ported yet.
+wave engine, and what ``--mesh`` / ``--fake-devices`` refuse as the
+reference does (the served mesh is in ``tests/test_torch_parallel.py``).
 """
 import json
 
@@ -104,10 +104,20 @@ def test_wave_engine(tmp_path, capsys):
     assert optrace.spans() == [] and optrace.events()
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "1x1"],
-                                  ["--fake-devices", "4"]],
-                         ids=["mesh", "fake_devices"])
-def test_sharding_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="not ported yet: "
-                       "sharding"):
+@pytest.mark.parametrize("flag,match", [
+    (["--mesh", "2x2x2"], "DATAxMODEL"),
+    (["--fake-devices", "2", "--mesh", "2x2"], "needs 4 devices")],
+    ids=["mesh", "fake_devices"])
+def test_sharding_flags_raise(flag, match):
+    """What the reference refuses: a mesh spec that is not DATAxMODEL, a
+    mesh larger than the (fake) devices.  The served mesh runs in
+    tests/test_torch_parallel.py (its ranks are processes)."""
+    with pytest.raises(ValueError, match=match):
         serve.main(["--device", "cpu", *flag])
+
+
+def test_fake_devices_without_mesh_serves(capsys):
+    serve.main(["--device", "cpu", "--fake-devices", "4", "--requests", "2",
+                "--max-new", "2"])
+    lines = capsys.readouterr().out.splitlines()
+    assert len([ln for ln in lines if ln.startswith("req")]) == 2
