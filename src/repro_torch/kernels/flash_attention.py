@@ -54,12 +54,20 @@ ATTN_ROWS = (8, 16, 32, 64)
 ATTN_CLUSTER = 8
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c``, correctly rounded on every device: PyTorch multiplies a
+    CUDA tensor by the rounded reciprocal of a Python number it is divided
+    by (an ulp off for about one value in twenty), so ``c`` goes in as a
+    tensor on ``x``'s device, as the kernels divide."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def _per_head_quantize(x: torch.Tensor, qmax: float = 127.0):
     """(B, H, S, dh) float -> (int8 payload, (H, 1) float32 per-head
     scale); ``torch.round`` rounds half to even, as ``jnp.round``."""
     xf = x.float()
     amax = xf.abs().amax(dim=(0, 2, 3))
-    scale = torch.clamp(amax, min=_EPS) / qmax                  # (H,)
+    scale = _div(torch.clamp(amax, min=_EPS), qmax)             # (H,)
     xq = torch.clamp(torch.round(xf / scale[None, :, None, None]),
                      -qmax, qmax).to(torch.int8)
     return xq, scale[:, None]
@@ -269,7 +277,7 @@ def int8_flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     vf = F.pad(vq.double(), (0, 0, 0, kv_pad)).repeat_interleave(rep, dim=1)
     maskp = F.pad(mask, (0, kv_pad, 0, q_pad))[:, None]   # (B, 1, Sqp, Skvp)
     s_qk = sqk[None, :, None, None]
-    s_v = (sv / 127.0).repeat_interleave(rep)[None, :, None, None]
+    s_v = _div(sv, 127.0).repeat_interleave(rep)[None, :, None, None]
     Sqp = Sq + q_pad
     m = torch.full((B, H, Sqp, 1), _NEG_INF, dtype=torch.float32,
                    device=q.device)
@@ -283,7 +291,7 @@ def int8_flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
         p = torch.exp(s - m_new)
         pq = torch.round(p * 127.0)
         corr = torch.exp(m - m_new)
-        l = l * corr + pq.sum(dim=-1, keepdim=True) / 127.0
+        l = l * corr + _div(pq.sum(dim=-1, keepdim=True), 127.0)
         pv = torch.matmul(pq.double(), vj).float()
         acc = acc * corr + pv * s_v
         m = m_new

@@ -55,9 +55,12 @@ K / V into the stage's one shared cache and advances its ``len``, so that
 Frontends: an ``"audio"`` config takes ``batch["embeds"] (B, S, d)``
 in place of token ids in every entry point; a ``"vlm"`` config puts
 ``batch["pixel_embeds"] (B, n_patches, d)`` before the text in the
-uncached forward, and ``loss_fn`` drops those positions.  The reduced-
-precision serving modes (quantized weights, int8 attention) of SSM, hybrid,
-frontend and tied configs raise "not ported yet".
+uncached forward, and ``loss_fn`` drops those positions.  Every config
+takes every reduced-precision mode (quantized weights, int8 attention),
+as the reference's: ``quant.quantize_lm_weights`` quantizes only the
+projections of ``LM_WEIGHT_KEYS``, so an SSM mixer's projections and a
+tied head (``embed.T``) stay float, and a hybrid stage's shared block is
+one set of quantized weights that every application reads.
 
 On a mesh (``parallel.sharding``) the same functions run each rank's
 blocks, the collectives inside the products and the gathers; under a
@@ -159,25 +162,6 @@ class LM(nn.Module):
         self.final_norm = final_norm
         self.lm_head = None if lm_head is None else L.holder(lm_head)
         self.mtp = mtp
-
-
-def check_ported(cfg: ModelConfig, *, reduced_precision: bool = False
-                 ) -> None:
-    """Raise for the parts of a config the port does not run yet: with
-    ``reduced_precision`` (quantized weights or int8 attention), SSM and
-    hybrid stages, embedding frontends and tied embeddings."""
-    if not reduced_precision:
-        return
-    parts = [f"{s.block!r} stages" for s in cfg.stages
-             if s.block not in ("dense", "moe")]
-    if cfg.frontend != "none":
-        parts.append(f"frontend {cfg.frontend!r}")
-    if cfg.tie_embeddings:
-        parts.append("tied embeddings")
-    if parts:
-        raise NotImplementedError(
-            f"{cfg.name}: quantized weights or int8 attention with "
-            f"{', '.join(parts)}: not ported yet")
 
 
 # ---------------------------------------------------------------------------

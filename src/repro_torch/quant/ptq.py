@@ -94,12 +94,12 @@ def quantize_lm_weights(model: nn.Module,
     0.5 B/elem) or ``"fp8"`` (e4m3).
 
     The new model shares every tensor it does not quantize with ``model``
-    (embeddings and norms are not copied), so quantizing a model that
-    fills the card needs room for the quantized weights only.  An LM of
-    an SSM, hybrid, frontend or tied config raises "not ported yet"."""
-    from repro_torch.models import transformer as T   # deferred: a cycle
-    if isinstance(model, T.LM):
-        T.check_ported(model.cfg, reduced_precision=True)
+    (embeddings, norms, an SSM mixer's projections: only the keys of
+    ``keys`` quantize), so quantizing a model that fills the card needs
+    room for the quantized weights only.  A tied head (``embed.T``) has no
+    ``lm_head`` to quantize.  A module reached from several places (a
+    hybrid stage's shared block) is quantized once: every application
+    reads the one ``QuantizedWeight``."""
     shared = {id(t): t for t in (*model.parameters(), *model.buffers())}
     qmodel = copy.deepcopy(model, shared)
     for m in list(qmodel.modules()):
@@ -116,7 +116,9 @@ def lm_calibration_forward(qmodel: nn.Module, batch: dict, cfg):
     """The LM's uncached forward (``transformer.forward``) and its head:
     every quantized projection, layer by layer and the head, sees its
     concrete activation through the dispatcher's calibration tap.
-    Returns the logits."""
+    ``batch`` is what ``transformer.forward`` takes: ``"tokens"``, with
+    ``"pixel_embeds"`` before them for a ``"vlm"`` config, or an
+    ``"audio"`` config's ``"embeds"``.  Returns the logits."""
     from repro_torch.models import transformer as T   # deferred: a cycle
     x, _ = T.forward(qmodel, batch, cfg, exact_causal=False)
     return T._head_logits(qmodel, x, cfg)
@@ -127,8 +129,8 @@ def quantize_lm(model: nn.Module, cfg, calib_batches: Iterable[Any], *,
     """LM PTQ: per-column projection weights (:func:`quantize_lm_weights`)
     and a calibrated activation scale per projection and layer.
 
-    Runs :func:`lm_calibration_forward` over ``calib_batches`` (dicts with
-    ``"tokens"``) inside a calibration scope and writes the observed scales
+    Runs :func:`lm_calibration_forward` over ``calib_batches`` (its
+    batches) inside a calibration scope and writes the observed scales
     in.  ``fmt="int4"`` / ``"fp8"`` quantize the weights at those widths;
     int4 stays weight-only at dispatch (its scales are recorded, unused)."""
     qmodel = quantize_lm_weights(model, fmt=fmt)

@@ -62,6 +62,12 @@ class TracedConv:
         return conv_out_hw(self.H, self.W, self.kh, self.kw, self.stride,
                            self.padding)[1]
 
+    @property
+    def macs(self) -> int:
+        """Multiply-adds of one image (``N`` times that for the batch)."""
+        return (self.H_out * self.W_out * self.kh * self.kw
+                * (self.C_in // self.groups) * self.C_out)
+
 
 _TRACE: contextvars.ContextVar[list[TracedConv] | None] = \
     contextvars.ContextVar("vision_torch_trace", default=None)
@@ -151,24 +157,34 @@ class DWSeparable(nn.Module):
         self.dw, self.pw = dw, pw
 
 
+def _normal(generator: torch.Generator, shape: tuple, scale, *, dtype,
+            device) -> torch.Tensor:
+    """``scale`` of a standard-normal float32 draw from ``generator`` on
+    the host, on ``device``; on the ``meta`` device only its shape
+    (nothing drawn: the tracer's model)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
+    w = torch.randn(shape, generator=generator, dtype=torch.float32)
+    return scale(w).to(device=device, dtype=dtype)
+
+
 def init_conv_bn(generator: torch.Generator, k: int, c_in: int, c_out: int,
                  *, groups: int = 1, dtype=torch.float32,
                  device=None) -> ConvBN:
     """He-normal conv weight + zero folded-BN bias."""
     fan_in = k * k * (c_in // groups)
-    w = torch.randn((k, k, c_in // groups, c_out), generator=generator,
-                    dtype=torch.float32) * math.sqrt(2.0 / fan_in)
-    return ConvBN(w.to(device=device, dtype=dtype),
-                  torch.zeros((c_out,), dtype=dtype, device=device))
+    w = _normal(generator, (k, k, c_in // groups, c_out),
+                lambda w: w * math.sqrt(2.0 / fan_in), dtype=dtype,
+                device=device)
+    return ConvBN(w, torch.zeros((c_out,), dtype=dtype, device=device))
 
 
 def init_dwconv_bn(generator: torch.Generator, k: int, c: int, *,
                    dtype=torch.float32, device=None) -> ConvBN:
     """He-normal depthwise weight ``(k, k, c)`` + zero folded-BN bias."""
-    w = torch.randn((k, k, c), generator=generator,
-                    dtype=torch.float32) * math.sqrt(2.0 / (k * k))
-    return ConvBN(w.to(device=device, dtype=dtype),
-                  torch.zeros((c,), dtype=dtype, device=device))
+    w = _normal(generator, (k, k, c), lambda w: w * math.sqrt(2.0 / (k * k)),
+                dtype=dtype, device=device)
+    return ConvBN(w, torch.zeros((c,), dtype=dtype, device=device))
 
 
 def init_dw_separable(generator: torch.Generator, c_in: int, c_out: int, *,
@@ -180,9 +196,9 @@ def init_dw_separable(generator: torch.Generator, c_in: int, c_out: int, *,
 
 def init_dense(generator: torch.Generator, d_in: int, d_out: int, *,
                dtype=torch.float32, device=None) -> Dense:
-    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32)
-    return Dense((w / math.sqrt(d_in)).to(device=device, dtype=dtype),
-                 torch.zeros((d_out,), dtype=dtype, device=device))
+    w = _normal(generator, (d_in, d_out), lambda w: w / math.sqrt(d_in),
+                dtype=dtype, device=device)
+    return Dense(w, torch.zeros((d_out,), dtype=dtype, device=device))
 
 
 def init_bottleneck(generator: torch.Generator, c_in: int, c_mid: int,

@@ -144,7 +144,7 @@ class VisionEngine:
         if policy is None and is_quantized(self.model) \
                 and pol.precision == "float":
             pol = dataclasses.replace(pol, precision="int8")
-        pol.check_ported()
+        pol.check_accum()
         self.policy = pol
         self.last_stats: dict[str, Any] | None = None
         self.graphs = StepGraphs(self.device, graphs=graphs)

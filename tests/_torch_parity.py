@@ -11,6 +11,10 @@ Inputs are made with numpy from a seed and handed to both packages.
 """
 from __future__ import annotations
 
+import dataclasses
+import enum
+import math
+
 import jax
 import numpy as np
 import pytest
@@ -90,3 +94,52 @@ ATOL = 2e-5
 
 def assert_close(got, want, *, rtol: float = RTOL, atol: float = ATOL):
     np.testing.assert_allclose(np_of(got), np_of(want), rtol=rtol, atol=atol)
+
+
+def plain(x):
+    """A result as plain Python: enums by value, dataclasses as (class
+    name, fields), arrays as nested lists."""
+    if isinstance(x, enum.Enum):
+        return ("enum", type(x).__name__, x.value)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__, {f.name: plain(getattr(x, f.name))
+                                   for f in dataclasses.fields(x)})
+    if isinstance(x, np.ndarray):
+        return plain(x.tolist())
+    if isinstance(x, dict):
+        return {plain(k): plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(plain(v) for v in x)
+    if isinstance(x, np.generic):
+        return x.item()
+    return x
+
+
+def same(got, want, path="", rel: float = 1e-12) -> None:
+    """``got`` EQUAL ``want`` (dataclasses, enums, arrays, containers)
+    but for floats, within ``rel`` relative."""
+    _same(plain(got), plain(want), path, rel)
+
+
+def _same(got, want, path, rel):
+    if isinstance(want, float) or isinstance(got, float):
+        assert isinstance(got, (int, float)) and isinstance(want,
+                                                            (int, float)), \
+            (path, got, want)
+        if math.isinf(want) or math.isnan(want):
+            assert got == want or (math.isnan(got) and math.isnan(want))
+            return
+        assert abs(got - want) <= rel * abs(want), (path, got, want)
+        return
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), path
+        for k in want:
+            _same(got[k], want[k], f"{path}.{k}", rel)
+        return
+    if isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), \
+            (path, got, want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same(g, w, f"{path}[{i}]", rel)
+        return
+    assert got == want, (path, got, want)

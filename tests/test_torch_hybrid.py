@@ -306,11 +306,23 @@ class TestEngine:
     @pytest.mark.parametrize("kw", [dict(quantized="int4"),
                                     dict(attn_int8=True)])
     def test_reduced_precision_modes_raise(self, lm, kw):
-        _, _, cfg, model = lm
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            E.ServeEngine(model, cfg, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            quant.quantize_lm_weights(model, fmt="int8")
+        # each mode builds and serves, as the reference's engine does
+        # (tests/test_torch_quant_archs.py holds every mode's tokens to
+        # the reference's): int4 weights on the shared block and the head
+        # only (the mixers stay float), int8 attention on the shared cache
+        cfg_j, params, cfg, model = lm
+        reqs = _requests(cfg)[:3]
+        ekw = dict(batch_slots=2, max_len=32, prefill_chunk=4, **kw)
+        jeng = JE.ServeEngine(params, cfg_j, policy=INTERPRET, **ekw)
+        want = jeng.generate([JE.Request(**r) for r in reqs])
+        eng = E.ServeEngine(model, cfg, device="cpu", **ekw)
+        assert eng.generate([E.Request(**r) for r in reqs]) == want
+        assert eng.policy.attn_int8 == bool(kw.get("attn_int8"))
+        assert eng.cache_dtype == torch.bfloat16
+        qmodel = quant.quantize_lm_weights(model, fmt="int8")
+        names = {n for n, m in qmodel.named_modules()
+                 if isinstance(m, quant.QuantizedWeight)}
+        assert "lm_head" in names and not any(".mixer." in n for n in names)
 
 
 # ---------------------------------------------------------------------------

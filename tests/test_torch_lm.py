@@ -141,19 +141,19 @@ class TestConfigs:
             return
         # ported: SSM and hybrid stages (tests/test_torch_ssm.py and
         # tests/test_torch_hybrid.py) and both frontends
-        # (tests/test_torch_frontends.py); their reduced-precision serving
-        # modes still raise
+        # (tests/test_torch_frontends.py), in every reduced-precision mode
+        # too (tests/test_torch_quant_archs.py)
         if name in ("mamba2", "hybrid"):
             cfg = dataclasses.replace(cfg, d_inner=128, ssm_state=8,
                                       mamba_headdim=32)
-        T.init_params(cfg, generator=torch.Generator(), device="cpu")
+        model = T.init_params(cfg, generator=torch.Generator(), device="cpu")
         caches = T.init_caches(cfg, 1, 8, device="cpu")
         layer = caches["stages"][0]["layers"][0]
         assert set(layer) == ({"ssm"} if name in ("mamba2", "hybrid")
                               else {"attn"})
         assert ("shared" in caches["stages"][0]) == (name == "hybrid")
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.check_ported(cfg, reduced_precision=True)
+        assert quant.is_quantized(quant.quantize_lm_weights(model,
+                                                            fmt="int4"))
 
 
 # ---------------------------------------------------------------------------
@@ -593,8 +593,8 @@ class TestSteps:
         # the reference), and so is a sliding window (a window of 1: each
         # token sees only itself, so the output is its own value's
         # projection; tests/test_torch_window.py holds windows against the
-        # reference); SSM stages and tied embeddings are ported too, their
-        # reduced-precision serving modes not
+        # reference); SSM stages and tied embeddings are ported too, in
+        # every reduced-precision mode (tests/test_torch_quant_archs.py)
         out, cache = L.attention_fwd(model.stages[0].layers[0].attn, x, cfg,
                                      positions=torch.arange(2))
         assert cache is None and out.shape == x.shape
@@ -606,14 +606,6 @@ class TestSteps:
             1, 2, cfg.n_kv, 1, cfg.d_head).expand(
             -1, -1, -1, cfg.n_heads // cfg.n_kv, -1).reshape(1, 2, -1)
         assert_close(out, torch.einsum("bse,ed->bsd", v, attn.wo))
-        T.check_ported(dataclasses.replace(cfg, **UNPORTED["mamba2"]))
-        T.check_ported(dataclasses.replace(cfg, tie_embeddings=True))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            T.check_ported(dataclasses.replace(cfg, **UNPORTED["mamba2"]),
-                           reduced_precision=True)
-        with pytest.raises(NotImplementedError, match="tied embeddings"):
-            T.check_ported(dataclasses.replace(cfg, tie_embeddings=True),
-                           reduced_precision=True)
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ pytestmark = pytest.mark.usefixtures("jax_alias")
 
 WO_TOL = 1e-5           # int4 weight-only: f32 reordering
 ATTN_TOL = 1e-2         # x max|out|: one requantization step of p
+ATTN_SAME_TOL = 1e-5    # x max|out|: no step apart, the roundings alone
 
 
 def _int4(seed: int, K: int, N: int) -> np.ndarray:
@@ -553,6 +554,27 @@ class TestOnCard:
         assert float((got16.float() - want16.float()).abs().max()) <= \
             ATTN_TOL * float(want16.float().abs().max())
 
+    @pytest.mark.parametrize("H,KvH,dh", [(32, 32, 112), (14, 2, 64)])
+    @pytest.mark.parametrize("T", [1, 16])
+    def test_int8_attention_head_dims(self, cuda_device, H, KvH, dh, T):
+        # Zamba2-7B's shared block (dh 112, a KV head for each query head)
+        # and InternVL2-1B (dh 64, seven query heads a KV head) at 8 slots
+        # on the bf16 cache: no requantized step apart from the plain
+        # version, whose divisions by 127 are exact on the card, as the
+        # kernel's are
+        B, S = 8, 512
+        g = torch.Generator(device=cuda_device).manual_seed(H + dh + T)
+        q = torch.randn(B, H, T, dh, generator=g, device=cuda_device)
+        k, v = (torch.randn(B, KvH, S + T, dh, generator=g,
+                            device=cuda_device).bfloat16()
+                for _ in range(2))
+        mask = torch.from_numpy(_engine_mask(B, T, S, T)).to(cuda_device)
+        kw = dict(mask=mask, block_q=T, block_kv=128)
+        got = tfa.int8_flash_attention_fwd(q, k, v, **kw)
+        want = tfa.int8_flash_attention_plain(q, k, v, **kw)
+        assert float((got - want).abs().max()) <= \
+            ATTN_SAME_TOL * float(want.abs().max())
+
     @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
     def test_amax_scales_are_exact(self, cuda_device, kv_dtype):
         # the first launch's per-head amax gives _per_head_quantize's
@@ -564,8 +586,8 @@ class TestOnCard:
         amax = tfa.head_amax(q, k, v)
         for x, a in zip((q, k, v), amax):
             _, want = tfa._per_head_quantize(x)
-            assert torch.equal(torch.clamp(a, min=tfa._EPS) / 127.0,
-                               want[:, 0])
+            assert torch.equal(tfa._div(torch.clamp(a, min=tfa._EPS),
+                                        127.0), want[:, 0])
         tfa.int8_flash_attention_fwd(q, k, v)
         torch.cuda.synchronize()
         assert all(int(ws.abs().sum()) == 0

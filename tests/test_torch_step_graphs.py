@@ -10,7 +10,9 @@ CDF at the given uniforms.
 
 On the card (``cuda``-marked, skipped here): the engines with graphs
 (the default) against the same engines with ``graphs=False`` on reduced
-Yi-9B (float32, int4 + ``attn_int8``, calibrated int8), decoupled
+Yi-9B (float32, int4 + ``attn_int8``, calibrated int8) and reduced
+Falcon-Mamba-7B (int4, fp8), Zamba2-7B (int4 + ``attn_int8``) and
+InternVL2-1B (calibrated int8 + ``attn_int8``, fp8), decoupled
 prefill, the wave engine and reduced ResNet50: tokens EQUAL, every step's
 logits rows bit for bit (the same kernels on the same inputs; each kernel
 of these paths sums in a fixed order), the wrappers' launch counts of a
@@ -18,6 +20,7 @@ replayed run equal the eager run's, exactly the declared shapes captured;
 a graph keeps the split-K workspace it was captured with when a later
 step grows the stream's workspace.  This file imports no JAX: the card's tests run where JAX is missing.
 """
+import dataclasses
 import gc
 import weakref
 
@@ -241,23 +244,62 @@ CARD_MODES = {"float32": {}, "int4_attn_int8": dict(quantized="int4",
               "int8_calibrated": {}}
 
 
+def _calibrated(cfg, model, dev):
+    """``quantize_lm`` (int8) on one batch of 2 x 16 tokens (behind patch
+    embeddings for a vlm)."""
+    g = torch.Generator(dev).manual_seed(1)
+    batch = {"tokens": torch.randint(2, cfg.vocab, (2, 16), device=dev,
+                                     generator=g)}
+    if cfg.frontend == "vlm":
+        batch["pixel_embeds"] = torch.randn(
+            (2, cfg.n_patches, cfg.d_model), device=dev, generator=g)
+    return quantize_lm(model, cfg, [batch], fmt="int8")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", list(CARD_MODES))
 def test_graph_steps_equal_eager_steps(cuda_device, mode):
     cfg = get_config("yi-9b", reduced=True)
     model = _card_lm(cfg, cuda_device)
     if mode == "int8_calibrated":
-        calib = [{"tokens": torch.randint(2, cfg.vocab, (2, 16),
-                                          device=cuda_device,
-                                          generator=torch.Generator(
-                                              cuda_device).manual_seed(1))}]
-        model = quantize_lm(model, cfg, calib, fmt="int8")
+        model = _calibrated(cfg, model, cuda_device)
+    _graphs_equal_eager(cfg, model, cuda_device, CARD_MODES[mode])
+
+
+# the reduced-precision modes of the SSM, hybrid and tied configs, each
+# captured as Yi-9B's are (Zamba2 cut to two shared-block applications)
+ARCH_MODES = [("falcon-mamba-7b", "int4", dict(quantized="int4")),
+              ("falcon-mamba-7b", "fp8", dict(quantized="fp8")),
+              ("zamba2-7b", "int4_attn_int8", dict(quantized="int4",
+                                                   attn_int8=True)),
+              ("internvl2-1b", "int8_calibrated", dict(attn_int8=True)),
+              ("internvl2-1b", "fp8", dict(quantized="fp8"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode,knobs", ARCH_MODES,
+                         ids=[f"{n}-{m}" for n, m, _ in ARCH_MODES])
+def test_quantized_arch_graphs_equal_eager_steps(cuda_device, name, mode,
+                                                 knobs):
+    cfg = get_config(name, reduced=True)
+    if name == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, stages=(dataclasses.replace(
+            cfg.stages[0], n_layers=4),))
+    model = _card_lm(cfg, cuda_device)
+    if mode == "int8_calibrated":
+        model = _calibrated(cfg, model, cuda_device)
+    _graphs_equal_eager(cfg, model, cuda_device, knobs)
+
+
+def _graphs_equal_eager(cfg, model, dev, knobs) -> None:
+    """The engine with graphs against the same engine's eager steps:
+    tokens EQUAL, every step's rows bit for bit, the same launches, the
+    declared shapes captured and the int32 workspaces left zero."""
     reqs = _requests(cfg)
     runs = {}
     for graphs in (True, False):
         eng = E.ServeEngine(model, cfg, batch_slots=SLOTS, max_len=MAX_LEN,
-                            prefill_chunk=CHUNK, graphs=graphs,
-                            **CARD_MODES[mode])
+                            prefill_chunk=CHUNK, graphs=graphs, **knobs)
         runs[graphs] = _served(eng, reqs)
         if graphs:
             assert eng.graphs.captured == [
@@ -267,7 +309,7 @@ def test_graph_steps_equal_eager_steps(cuda_device, mode):
             # the split-K counters and the int8 attention's amax slots are
             # left zero by every replay
             torch.cuda.synchronize()
-            for ws in kernels.stream_workspaces(cuda_device,
+            for ws in kernels.stream_workspaces(dev,
                                                 eng.graphs.stream.cuda_stream):
                 if ws.dtype == torch.int32:
                     assert int(ws.abs().sum()) == 0
